@@ -1,0 +1,111 @@
+"""The port stands alone: no JAX, no Flax, nothing of sepi_tpu.
+
+Every module of sepi_tpu_torch (and chip_smoke.py) imports in a fresh
+interpreter whose import system refuses jax, jaxlib, flax and sepi_tpu;
+entry points default to the GPU and raise where there is none.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "sepi_tpu")
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = {blocked!r}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import sepi_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sepi_tpu_torch.__path__, "sepi_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
+print(len(names), leaked)
+"""
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("PYTHONSTARTUP", None)
+    return env
+
+
+def test_imports_with_jax_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(blocked=BLOCKED)],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20 and leaked == "[]", out.stdout
+
+
+def test_no_import_statement_names_the_reference():
+    files = list((ROOT / "sepi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in BLOCKED, f"{f}: imports {name}"
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    """With no usable GPU, an entry point called without device= raises
+    instead of running on the CPU."""
+    from sepi_tpu_torch.config import FrontendConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+    from sepi_tpu_torch.models import V2_XVECTOR, XVector
+    from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.recipes import extract_and_score, prepare_features_nosil
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    audio = {"u": np.zeros(8000, np.float32)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        FeatureExtractor(FrontendConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        prepare_features_nosil(audio)
+    with pytest.raises(RuntimeError, match="cuda"):
+        EmbeddingExtractor(XVector(V2_XVECTOR))
+    with pytest.raises(RuntimeError, match="cuda"):
+        extract_and_score(XVector(V2_XVECTOR), None, {"u": np.zeros((50, 23), np.float32)})
+
+
+def test_chip_smoke_refuses_without_a_gpu():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_refuses_outside_the_repository(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    env = dict(os.environ, PYTHONPATH="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
