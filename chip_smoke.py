@@ -6,16 +6,27 @@
 Phases, one line each; a failing phase raises and the script exits
 non-zero:
   1. environment: torch, the card's name and power limit; TF32 off.
-  2. build every kernel from sepi_tpu_torch/csrc with nvcc (sm_90a).
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (16 x 100 s, and a small ragged batch), dithered
-     and undithered; kernel / plain / library-call times (CUDA events).
-  4. the main path at full width: synthetic corpus -> prepare_features_nosil
-     -> extract_and_score (full-size V2 x-vector, seeded random weights)
-     -> backend_eval, with the kernels' launch counts read around it and a
-     CPU run of the same path on part of the corpus as the reference.
+  2. build every kernel from sepi_tpu_torch/csrc with nvcc (sm_90a), one
+     nvcc process per source, all started together.
+  3. each kernel against its plain PyTorch version on the card, with
+     kernel / plain / library-call times (CUDA events):
+     - the MFCC at the extraction path's shapes (16 x 100 s, and a small
+       ragged batch), dithered and undithered;
+     - the Viterbi at B=32 x T=1024 x S=512, at B=32 x T=2048 x S=144
+       with ragged lengths, and on a tie-heavy case.
+  4. the extraction path at full width: synthetic corpus ->
+     prepare_features_nosil -> extract_and_score (full-size V2 x-vector,
+     seeded random weights) -> backend_eval, with the kernels' launch
+     counts read around it and a CPU run of the same path on part of the
+     corpus as the reference.
   5. extraction throughput at the bench shape (MFCC -> VAD -> CMVN ->
      select -> x-vector embedding), audio-seconds/s.
+  6. the s5 aligner path at full width: phonetic corpus (128 utterances
+     of 8-16 words) -> prepare_features_phonetic -> run_s5 (4096-leaf
+     budget, LDA+MLLT, fMLLR SAT) -> select_voiced_ali, with the launch
+     counts read around it; then the Viterbi held against its plain
+     version on a batch the path gave it, and 8 utterances re-aligned
+     on the CPU with the final model as the reference.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -350,6 +361,273 @@ def phase_throughput(env, device="cuda", batch=BENCH_B, secs=BENCH_SECS, iters=5
         f"peak memory {peak_gb:.2f} GB")
 
 
+VITERBI_ATOL = 1e-4  # live delta (reference > -1e29) of the kernel vs its plain version
+VITERBI_LIVE = -1e29
+VITERBI_REPLACES = "sepi_tpu/align/viterbi_pallas.py:51"
+S5_AGREE = 0.995  # share of frames the CPU re-alignment must reproduce
+
+
+def _viterbi_inputs(b, t, s, t_len, seed, device, ties=False, skip=4):
+    """Random emissions and random skip arcs, as tests/test_align.py builds
+    them; or a tie-heavy case (integer emissions, equal arc log-probs)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    trans = np.full((b, 3, s), -1e30, np.float32)
+    if ties:
+        emit = rng.integers(-3, 1, size=(b, t, s)).astype(np.float32)
+        trans[:, 0, :] = trans[:, 1, 1:] = trans[:, 2, skip:] = -1.0
+    else:
+        emit = rng.standard_normal(size=(b, t, s), dtype=np.float32)
+        trans[:, 0, :] = np.log(0.6)
+        trans[:, 1, 1:] = np.log(0.4)
+        trans[:, 2, skip:] = np.where(rng.random((b, s - skip)) < 0.3, np.log(0.2), -1e30)
+    return (torch.as_tensor(emit, device=device),
+            torch.as_tensor(np.asarray(t_len, np.int32), device=device),
+            torch.as_tensor(trans, device=device))
+
+
+def _viterbi_check(label, emit, t_len, trans, skip=4) -> float:
+    """Kernel vs plain version: backpointers equal over every state, live
+    delta within VITERBI_ATOL, dead delta equal.  Returns the live max abs error."""
+    import torch
+
+    from sepi_tpu_torch.align import viterbi_cuda
+
+    bp, d = viterbi_cuda.viterbi_batch(emit, t_len, trans, skip)
+    bp_r, d_r = viterbi_cuda.viterbi_batch_reference(emit, t_len, trans, skip)
+    torch.cuda.synchronize()
+    if bp.shape != bp_r.shape or not torch.equal(bp, bp_r):
+        bad = int((bp != bp_r).sum()) if bp.shape == bp_r.shape else -1
+        raise AssertionError(f"viterbi {label}: {bad} backpointers differ")
+    live = d_r > VITERBI_LIVE
+    err = float((d - d_r)[live].abs().max()) if bool(live.any()) else 0.0
+    if not err <= VITERBI_ATOL or not torch.equal(d[~live], d_r[~live]):
+        raise AssertionError(f"viterbi {label}: live delta err {err} (limit {VITERBI_ATOL}) "
+                             f"or dead delta differs")
+    log(f"  viterbi {label}: {tuple(emit.shape)}, bps equal over all "
+        f"{bp.numel()} entries ({int((bp == 1).sum())} advance, {int((bp == 2).sum())} skip), "
+        f"live delta max abs err {err:.3e} <= {VITERBI_ATOL}")
+    return err
+
+
+def _viterbi_timing(env, emit, t_len, trans, skip=4):
+    """Kernel and plain-version times (CUDA events) and the bound of this call."""
+    import torch
+
+    from sepi_tpu_torch.align import viterbi_cuda
+
+    b, t, s = emit.shape
+    ms = time_ms(lambda: viterbi_cuda.viterbi_batch(emit, t_len, trans, skip))
+    plain_ms = time_ms(lambda: viterbi_cuda.viterbi_batch_reference(emit, t_len, trans, skip),
+                       iters=3, warmup=1)
+    live_steps = int((t_len.to(torch.int64).clamp(1, t) - 1).sum())
+    # emissions read once over the live rows (plus emit[b,0,0]), the
+    # transitions and lengths once; bps and delta written once
+    nbytes = 4 * (live_steps * s + b) + 4 * 3 * b * s + 4 * b + b * (t - 1) * s + 4 * b * s
+    ops = 7 * live_steps * s  # 4 adds and 3 compares per state and live step
+    t_bytes = nbytes / env["peak_bw"] * 1e3
+    t_ops = ops / env["peak_flops"] * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "live_steps": live_steps}
+
+
+def phase_viterbi(env, device="cuda"):
+    """The Viterbi kernel against its plain version at the reference's
+    alignment-benchmark shapes, ragged, and tie-heavy; times; bound."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    ragged = [2048, 1500, 777, 2] + rng.integers(1, 2049, size=28).tolist()
+    cases = {
+        "32x1024x512": _viterbi_inputs(32, 1024, 512, [1024] * 32, 0, device),
+        "32x2048x144 ragged": _viterbi_inputs(32, 2048, 144, ragged, 1, device),
+        "32x1024x512 tie-heavy": _viterbi_inputs(32, 1024, 512, [1024] * 32, 2, device,
+                                                 ties=True),
+    }
+    worst = 0.0
+    timed = {}
+    for label, args in cases.items():
+        worst = max(worst, _viterbi_check(label, *args))
+        if "tie" not in label:
+            timed[label] = _viterbi_timing(env, *args)
+    split = "; ".join(f"{k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+                      f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}, {v['bytes'] / 1e6:.1f} MB)"
+                      for k, v in timed.items())
+    log(f"phase 3 kernels: viterbi_batch {split}; max abs err {worst:.3e}; library_ms null: "
+        f"no single PyTorch call computes a banded Viterbi")
+    return {"max_abs_err": worst, "cases": timed}
+
+
+def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
+             words_per_utt=(8, 16), cfg=None, cpu_check_utts=8):
+    """make_phonetic_corpus -> prepare_features_phonetic -> run_s5 ->
+    select_voiced_ali, then the checks against the plain versions."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.align import mono, tied, viterbi_cuda
+    from sepi_tpu_torch.config import AlignConfig
+    from sepi_tpu_torch.data import make_phonetic_corpus
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.ops.features import FeatureExtractor
+    from sepi_tpu_torch.recipes import prepare_features_phonetic, run_s5, select_voiced_ali
+
+    cfg = cfg or AlignConfig(lda_mllt=True, fmllr=True)
+    corpus = make_phonetic_corpus(num_speakers=num_speakers, utts_per_speaker=utts_per_speaker,
+                                  words_per_utt=words_per_utt, seed=0)
+    utt2spk = {u.utt_id: u.spk_id for u in corpus.dataset}
+
+    # keep references to every MFCC batch, to the final re-alignment's
+    # inputs and to the largest Viterbi batch, for the checks after the run
+    captured = {"mfcc": []}
+    orig_viterbi, orig_align = mono.viterbi_batch, tied.align_graphs
+    orig_fe_mfcc = FeatureExtractor.mfcc
+
+    def capture_mfcc(fe, samples, lengths=None, max_frames=None, utt_seeds=None):
+        feats_, mask_ = orig_fe_mfcc(fe, samples, lengths, max_frames, utt_seeds)
+        captured["mfcc"].append((fe, samples, lengths, max_frames, utt_seeds,
+                                 feats_.clone(), mask_.clone()))
+        return feats_, mask_
+
+    def capture_viterbi(emit, t_len, trans, skip=4):
+        if "viterbi" not in captured or emit.numel() > captured["viterbi"][0].numel():
+            captured["viterbi"] = (emit.clone(), t_len.clone(), trans.clone(), skip)
+        return orig_viterbi(emit, t_len, trans, skip)
+
+    def capture_align(model, graphs, features, *args, **kw):
+        captured["align"] = (model, graphs, features)
+        return orig_align(model, graphs, features, *args, **kw)
+
+    marks = []
+
+    def stage(msg):
+        marks.append((time.perf_counter() - t0, msg))
+        log(f"  [{marks[-1][0]:8.2f} s] {msg}")
+
+    mono.viterbi_batch, tied.align_graphs = capture_viterbi, capture_align
+    FeatureExtractor.mfcc = capture_mfcc
+    try:
+        mfcc_cuda.mfcc_fused.launches = 0
+        viterbi_cuda.viterbi_batch.launches = 0
+        t0 = time.perf_counter()
+        feats = prepare_features_phonetic(corpus.audio, device=device)
+        stage("[smoke] features done")
+        res = run_s5(feats.full, corpus.transcripts, corpus.lexicon, cfg, log=stage,
+                     utt2spk=utt2spk, device=device)
+        voiced_ali = select_voiced_ali(res.alignments, feats.voiced)
+        secs = time.perf_counter() - t0
+        launches = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
+                    "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
+    finally:
+        mono.viterbi_batch, tied.align_graphs = orig_viterbi, orig_align
+        FeatureExtractor.mfcc = orig_fe_mfcc
+    stage("[smoke] run_s5 + select_voiced_ali done")
+
+    frames = {u: f.shape[0] for u, f in feats.full.items()}
+    if sorted(res.alignments) != sorted(frames) or sorted(frames) != sorted(corpus.audio):
+        raise AssertionError(f"{len(res.alignments)} alignments for {len(frames)} utterances")
+    for u, a in res.alignments.items():
+        if len(a) != frames[u] or a.min() < 0 or a.max() >= res.num_senones:
+            raise AssertionError(f"{u}: {len(a)} labels for {frames[u]} frames, "
+                                 f"ids {a.min()}..{a.max()} of {res.num_senones}")
+    if sorted(voiced_ali) != sorted(feats.nosil) or any(
+            len(voiced_ali[u]) != feats.nosil[u].shape[0] for u in voiced_ali):
+        raise AssertionError("select_voiced_ali: labels and nosil features disagree")
+    if device != "cpu" and min(launches.values()) <= 0:
+        raise AssertionError(f"the s5 path did not launch every kernel: {launches}")
+
+    def at(prefix):
+        return next(t for t, m in marks if m.startswith(prefix))
+
+    bounds = [("features", at("[smoke] features")), ("mono EM", at("[tied] collecting")),
+              ("tree", at("[s5] tied tree"))]
+    if cfg.lda_mllt:
+        bounds.append(("LDA+MLLT", [t for t, m in marks if m.startswith("[s5] MLLT")][-1]))
+    bounds.append(("refine", at("[s5] alignment shift")))
+    if cfg.fmllr:
+        bounds += [("fMLLR estimate", at("[s5] fMLLR")), ("SAT re-align", secs)]
+    stages, prev = [], 0.0
+    for name, t in bounds:
+        stages.append(f"{name} {t - prev:.2f}")
+        prev = t
+
+    # every MFCC batch of the path against the plain version: the same
+    # FeatureExtractor call, with the plain version in the kernel's place
+    mfcc_err = 0.0
+    kernel_wrapper = mfcc_cuda.mfcc_fused
+    mfcc_cuda.mfcc_fused = mfcc_cuda.mfcc_fused_reference
+    try:
+        for fe, x, lens, t_max, seeds, out_k, m_k in captured["mfcc"]:
+            out_p, m_p = orig_fe_mfcc(fe, x, lens, t_max, seeds)
+            err = float((out_k - out_p).abs().max())
+            if not (torch.equal(m_k, m_p) and bool(torch.isfinite(out_k).all())
+                    and err <= TOL):
+                raise AssertionError(f"mfcc at the s5 batch {tuple(x.shape)}: max abs err "
+                                     f"{err}, masks equal {torch.equal(m_k, m_p)}")
+            mfcc_err = max(mfcc_err, err)
+    finally:
+        mfcc_cuda.mfcc_fused = kernel_wrapper
+    log(f"  mfcc at the s5 path's {len(captured['mfcc'])} batches "
+        f"{sorted({tuple(c[1].shape) for c in captured['mfcc']})}: "
+        f"max abs err {mfcc_err:.3e} <= {TOL}")
+
+    # one more alignment pass on the final inputs, timing the host backtrace
+    model, graphs, af = captured["align"]
+    bt = [0.0]
+    orig_bt = mono._backtrace
+
+    def timed_backtrace(*args):
+        tb = time.perf_counter()
+        out = orig_bt(*args)
+        bt[0] += time.perf_counter() - tb
+        return out
+
+    mono._backtrace = timed_backtrace
+    try:
+        tp = time.perf_counter()
+        again = mono.align_graphs(model, graphs, af, device=device)
+        pass_secs = time.perf_counter() - tp
+    finally:
+        mono._backtrace = orig_bt
+    repeat = sum(int(np.sum(again[u] == res.alignments[u])) for u in again)
+    total = sum(frames.values())
+
+    # the reference: the final model and graphs on the CPU, plain versions
+    sub = sorted(graphs)[:cpu_check_utts]
+    cpu = mono.align_graphs(model, {u: graphs[u] for u in sub}, {u: af[u] for u in sub},
+                            device="cpu")
+    same = sum(int(np.sum(cpu[u] == res.alignments[u])) for u in sub)
+    n_sub = sum(frames[u] for u in sub)
+    exact = sum(bool(np.array_equal(cpu[u], res.alignments[u])) for u in sub)
+    if same < S5_AGREE * n_sub or repeat < S5_AGREE * total:
+        raise AssertionError(f"re-alignment agrees on {same}/{n_sub} frames (CPU), "
+                             f"{repeat}/{total} (repeat on {device})")
+    t_pads = sorted({mono._bucket_len(n) for n in frames.values()})
+    log(f"phase 6 s5 path: {len(frames)} utts ({total} frames, T buckets {t_pads}) -> "
+        f"{res.num_senones} senones (budget {cfg.num_leaves}), {len(voiced_ali)} voiced "
+        f"label streams; {secs:.2f} s wall (stages: {', '.join(stages)}); launches {launches}; "
+        f"shift per refine round {[round(x, 4) for x in res.frames_shifted]}; one alignment "
+        f"pass {pass_secs:.3f} s of which host backtrace {bt[0]:.3f} s "
+        f"({100 * bt[0] / pass_secs:.1f}%), repeat agrees on {repeat}/{total} frames; "
+        f"CPU re-alignment of {len(sub)} utts agrees on {same}/{n_sub} frames "
+        f"({100 * same / n_sub:.3f}%), {exact}/{len(sub)} utts frame for frame")
+
+    out = {"launches": launches, "mfcc_err": mfcc_err}
+    if device != "cpu":
+        emit, t_len, trans, skip = captured["viterbi"]
+        err = _viterbi_check("s5 batch", emit, t_len, trans, skip)
+        timing = _viterbi_timing(env, emit, t_len, trans, skip)
+        log(f"  viterbi at the s5 path's largest batch {tuple(emit.shape)}: kernel "
+            f"{timing['ms']:.3f} ms, plain {timing['plain_ms']:.3f} ms, bound "
+            f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}, {timing['bytes'] / 1e6:.1f} MB, "
+            f"{timing['live_steps']} live steps x S)")
+        out.update(viterbi_err=err, viterbi_shape=list(emit.shape), viterbi_timing=timing)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -362,11 +640,28 @@ def main() -> int:
 
     env = phase_environment()
     phase_build()
-    rec = phase_kernels(env)
+    mfcc = phase_kernels(env)
+    vit = phase_viterbi(env)
     main_counts = phase_main_path()
-    rec["launches"] = main_counts["launches"]
+    mfcc["launches"] = main_counts["launches"]
     phase_throughput(env)
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    s5 = phase_s5(env)
+    mfcc["launches_s5_path"] = s5["launches"]["mfcc_fused"]
+    mfcc["max_abs_err"] = max(mfcc["max_abs_err"], s5["mfcc_err"])
+    timing = s5["viterbi_timing"]
+    vit_rec = {
+        "name": "viterbi_batch", "route": "cuda",
+        "source": "sepi_tpu_torch/csrc/viterbi.cu",
+        "replaces": VITERBI_REPLACES,
+        "launches": s5["launches"]["viterbi_batch"],
+        "max_abs_err": max(vit["max_abs_err"], s5["viterbi_err"]),
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None,
+        "shape": s5["viterbi_shape"],
+        "cases": vit["cases"],
+    }
+    print(json.dumps({"kernels": [mfcc, vit_rec]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,16 @@
 """sepi_tpu_torch: the PyTorch/CUDA port of sepi_tpu.
 
-The extraction-and-scoring path of the v2 x-vector system (MFCC with the
-hand-written Hopper kernel -> energy VAD -> sliding CMVN -> voiced-frame
-compaction -> x-vector TDNN -> LDA/PLDA scoring -> EER/minDCF), held
-against the JAX package by tests that run both on the same inputs.
+Two paths, held against the JAX package by tests that run both on the
+same inputs:
+- the extraction-and-scoring path of the v2 x-vector system (MFCC with
+  the hand-written Hopper kernel -> energy VAD -> sliding CMVN ->
+  voiced-frame compaction -> x-vector TDNN -> LDA/PLDA scoring ->
+  EER/minDCF);
+- the s5 forced aligner (monophone Viterbi-EM -> tied senone tree ->
+  LDA+MLLT -> context-dependent re-alignment -> fMLLR SAT), with the
+  batched Viterbi as a hand-written Hopper kernel.
 Imports torch and numpy only; kernels build with nvcc at first use.
 """
 
-from . import backend, config, data, metrics, models, ops, recipes  # noqa: F401
+from . import align, backend, config, data, metrics, models, ops, recipes  # noqa: F401
 from .device import resolve_device  # noqa: F401

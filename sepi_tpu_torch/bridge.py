@@ -1,6 +1,12 @@
-"""Flax x-vector variables -> a torch `state_dict` for `models.XVector`.
+"""Weights across from the reference: x-vector variables, aligner models.
 
-The input is the reference's ``{'params', 'batch_stats'}`` tree with
+`mono_aligner_from_jax` and `tied_tree_from_jax` carry the reference
+aligner's GMM arrays and its senone tree into the port, so both packages
+can align with the same acoustic model.
+
+`xvector_state_dict_from_flax`: Flax x-vector variables -> a torch
+`state_dict` for `models.XVector`.  The input is the reference's
+``{'params', 'batch_stats'}`` tree with
 numpy (or array-like) leaves; nothing of JAX is imported.  Layouts:
 - ``frames/tdnn{i}/affine/kernel`` (k, in, out) -> ``Conv1d.weight``
   (out, in, k); ``bias`` as is.  ``segment/tdnn6``/``tdnn7`` follow the
@@ -50,3 +56,37 @@ def xvector_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         out["segment.output.weight"] = _t(np.asarray(seg["output"]["kernel"]).T)
         out["segment.output.bias"] = _t(seg["output"]["bias"])
     return out
+
+
+def mono_aligner_from_jax(means, vars, mix_w, loop_logp, phones, states_per_phone,
+                          device="cuda"):
+    """A `align.mono.MonoAligner` from the reference aligner's arrays
+    (numpy or array-like): the GMM on ``device``, ``loop_logp`` on the host."""
+    from .align.mono import MonoAligner
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    return MonoAligner(
+        _t(means).to(dev), _t(vars).to(dev), _t(mix_w).to(dev),
+        np.array(loop_logp, dtype=np.float32, copy=True),
+        tuple(phones), int(states_per_phone),
+    )
+
+
+def tied_tree_from_jax(tree):
+    """A port `align.tied.TiedTree` from the reference's tree, read by
+    attribute (``roots``, ``num_leaves``, ``states_per_phone``,
+    ``num_phones``; nodes' ``leaf_id``, ``side``, ``phone_set``, ``yes``,
+    ``no``), so nothing of the reference package is imported."""
+    from .align.tied import TiedTree, _Node
+
+    def node(n):
+        if n.leaf_id >= 0:
+            return _Node(leaf_id=int(n.leaf_id))
+        return _Node(leaf_id=-1, side=str(n.side),
+                     phone_set=frozenset(int(p) for p in n.phone_set),
+                     yes=node(n.yes), no=node(n.no))
+
+    roots = {(int(c), int(s)): node(n) for (c, s), n in tree.roots.items()}
+    return TiedTree(roots, int(tree.num_leaves), int(tree.states_per_phone),
+                    int(tree.num_phones))

@@ -1,8 +1,8 @@
-"""The configs of the extraction-and-scoring path.
+"""The configs of the ported paths.
 
-A copy of the dataclasses this path reads from `sepi_tpu/config.py`
+A copy of the dataclasses these paths read from `sepi_tpu/config.py`
 (`FrontendConfig`, `VadConfig`, `CmvnConfig`, `ExtractConfig`,
-`BackendConfig`), with the same fields and Kaldi-compatible defaults, so
+`BackendConfig`, `AlignConfig`), with the same fields and defaults, so
 a config built for either package means the same thing in the other.
 """
 
@@ -119,5 +119,39 @@ class BackendConfig:
     adapt_between_covar_scale: float = 0.25
     # on-device scoring is not ported yet; True raises in score_trials
     device_scoring: bool = False
+
+    replace = _replace
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignConfig:
+    """s5-analog aligner stage (egs/sre/s5/run.sh:108-202 capability).
+
+    Monophone Viterbi-EM (`steps/train_mono.sh`), likelihood-based state
+    tying to ``num_leaves`` senones (tri6a's 5000-leaf tree), then
+    ``refine_iters`` rounds of context-dependent re-alignment with
+    per-senone GMMs (`steps/align_si.sh` semantics).
+    """
+
+    num_leaves: int = 4096  # tri6a_4k
+    mono_iters: int = 4
+    refine_iters: int = 2
+    min_count: float = 100.0  # min frames per tied leaf
+    states_per_phone: int = 3
+    comps_per_senone: int = 2
+    seed: int = 0
+    # LDA+MLLT feature-space stage (steps/train_lda_mllt.sh, the tri3b
+    # rung: est-lda over spliced ±context frames + est-mllt/STC rounds
+    # interleaved with tied-tree re-alignment; s5/run.sh:130-140).  The
+    # tied tree is reused across the transform (Kaldi rebuilds it).
+    lda_mllt: bool = False
+    lda_mllt_dim: int = 40
+    splice_context: int = 3
+    mllt_iters: int = 2
+    # Speaker-adaptive pass (steps/align_fmllr.sh): per-speaker fMLLR
+    # transforms from the refined alignment, then re-alignment on the
+    # transformed features.  Needs utt2spk at the run_s5 call site.
+    fmllr: bool = False
+    fmllr_min_beta: float = 200.0  # frames below which a spk stays identity
 
     replace = _replace

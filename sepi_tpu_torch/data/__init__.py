@@ -1,4 +1,12 @@
 from .manifest import Dataset, Trial, Utterance
-from .synthetic import SyntheticCorpus, make_synthetic_corpus
+from .synthetic import PhoneticCorpus, SyntheticCorpus, make_phonetic_corpus, make_synthetic_corpus
 
-__all__ = ["Dataset", "SyntheticCorpus", "Trial", "Utterance", "make_synthetic_corpus"]
+__all__ = [
+    "Dataset",
+    "PhoneticCorpus",
+    "SyntheticCorpus",
+    "Trial",
+    "Utterance",
+    "make_phonetic_corpus",
+    "make_synthetic_corpus",
+]

@@ -5,6 +5,8 @@ Port of the serving half of `sepi_tpu/recipes/pipeline.py`:
   prepare_features_nosil  = make_mfcc + compute_vad + prepare_feats_for_egs
                             (MFCC -> energy VAD -> sliding CMVN -> strip
                             silence; `v2/run_sre10.sh:80-165`)
+  prepare_features_phonetic = the same chain keeping the with-silence
+                            stream and the VAD mask (the aligner's input)
   extract_and_score       = extract_xvectors_new.sh (chunked forward)
   backend_eval            = mean/LDA/PLDA/scoring/EER
                             (`v2/run_sre10.sh:221-334`)
@@ -16,6 +18,7 @@ the training stages and the device mesh wait for later work.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -129,6 +132,49 @@ def prepare_features_nosil(
     over length-bucketed utterances.  Returns utt_id -> (T_voiced,
     num_ceps) float32: the `_nosil` features every neural recipe uses."""
     return dict(iter_features_nosil(audio, frontend, vad, cmvn, key, batch_size, device))
+
+
+@dataclasses.dataclass
+class PhoneticFeatures:
+    """The artifacts of `sid/nnet3_cvector/cvector/prepare_feats.sh`:
+    WCMVN features with silence (aligner input), the per-frame voiced
+    mask, and the silence-stripped features (speaker-net input).
+    Alignments computed on ``full`` strip to ``nosil`` row for row via the
+    same mask (the select-voiced-ali invariant)."""
+
+    full: Dict[str, np.ndarray]  # utt -> (T, D) wcmvn feats incl. silence
+    voiced: Dict[str, np.ndarray]  # utt -> (T,) bool VAD decisions
+    nosil: Dict[str, np.ndarray]  # utt -> (T_voiced, D)
+
+
+def prepare_features_phonetic(
+    audio: Mapping[str, np.ndarray],
+    frontend: FrontendConfig = FrontendConfig(),
+    vad: VadConfig = VadConfig(),
+    cmvn: CmvnConfig = CmvnConfig(),
+    key: Optional[int] = None,
+    batch_size: int = 16,
+    device: DeviceLike = "cuda",
+) -> PhoneticFeatures:
+    """MFCC -> VAD -> sliding CMVN, keeping the with-silence stream, the
+    stripped stream and the mask that ties them.  ``nosil`` equals
+    `prepare_features_nosil` on the same audio."""
+    fe = FeatureExtractor(frontend, device=device)
+    full: Dict[str, np.ndarray] = {}
+    voiced_out: Dict[str, np.ndarray] = {}
+    nosil: Dict[str, np.ndarray] = {}
+    for utt_ids, normed, voiced, n_frames in _frontend_batches(
+        audio, fe, vad, cmvn, key, batch_size
+    ):
+        for b, utt_id in enumerate(utt_ids):
+            n = int(n_frames[b])
+            f = normed[b, :n]
+            v = voiced[b, :n].astype(bool)
+            full[utt_id] = f
+            voiced_out[utt_id] = v
+            if v.any():
+                nosil[utt_id] = f[v]
+    return PhoneticFeatures(full, voiced_out, nosil)
 
 
 def extract_and_score(

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from sepi_tpu_torch.align import viterbi_cuda
 from sepi_tpu_torch.config import FrontendConfig
 from sepi_tpu_torch.ops import mfcc_cuda
 from sepi_tpu_torch.ops.dither import utt_seeds
@@ -70,3 +71,61 @@ def test_mfcc_wrapper_rejects_bad_input(cuda):
         mfcc_cuda.mfcc_fused(x, lengths, cfg, 100)
     with pytest.raises(ValueError):
         mfcc_cuda.mfcc_fused(x.float().t(), lengths, cfg, 100)
+
+
+def _viterbi_inputs(rng, b, t, s, tlen, skip=4, ties=False):
+    if ties:
+        emit = rng.integers(-3, 1, size=(b, t, s)).astype(np.float32)
+        trans = np.full((b, 3, s), -1e30, np.float32)
+        trans[:, 0, :] = trans[:, 1, 1:] = -1.0
+        trans[:, 2, skip:] = -1.0
+    else:
+        emit = rng.normal(size=(b, t, s)).astype(np.float32)
+        trans = np.full((b, 3, s), -1e30, np.float32)
+        trans[:, 0, :] = np.log(0.6)
+        trans[:, 1, 1:] = np.log(0.4)
+        trans[:, 2, skip:] = np.where(rng.random((b, s - skip)) < 0.3, np.log(0.2), -1e30)
+    return emit, np.asarray(tlen, np.int32), trans
+
+
+@pytest.mark.parametrize("shape,tlen,ties", [
+    ((3, 40, 128), [40, 25, 33], False),
+    ((4, 57, 139), [57, 2, 1, 30], False),
+    ((2, 33, 1100), [33, 20], False),
+    ((3, 24, 128), [24, 11, 1], True),
+    ((2, 1, 16), [1, 1], False),
+])
+def test_viterbi_kernel_matches_plain(cuda, shape, tlen, ties):
+    """Backpointers equal over every state; delta within 1e-4 where live
+    (> -1e29), equal elsewhere."""
+    rng = np.random.default_rng(shape[2])
+    emit, tl, trans = (torch.tensor(a, device=cuda)
+                       for a in _viterbi_inputs(rng, *shape, tlen, ties=ties))
+    before = viterbi_cuda.viterbi_batch.launches
+    bp, d = viterbi_cuda.viterbi_batch(emit, tl, trans, 4)
+    bp_r, d_r = viterbi_cuda.viterbi_batch_reference(emit, tl, trans, 4)
+    torch.cuda.synchronize()
+    assert viterbi_cuda.viterbi_batch.launches == before + 1
+    assert bp.dtype == torch.int8 and bp.shape == (shape[0], shape[1] - 1, shape[2])
+    assert torch.equal(bp, bp_r)
+    live = d_r > -1e29
+    assert float((d - d_r)[live].abs().max()) <= 1e-4
+    assert torch.equal(d[~live], d_r[~live])
+
+
+def test_viterbi_wrapper_rejects_bad_input(cuda):
+    emit = torch.zeros((2, 8, 16), device=cuda)
+    tl = torch.tensor([8, 8], dtype=torch.int32, device=cuda)
+    trans = torch.zeros((2, 3, 16), device=cuda)
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi_batch(emit.double(), tl, trans)
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi_batch(emit.transpose(1, 2).contiguous().transpose(1, 2), tl, trans)
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi_batch(emit, tl.long(), trans)
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi_batch(emit, tl, trans.cpu())
+    big = viterbi_cuda.MAX_STATES + 1
+    with pytest.raises(ValueError):
+        viterbi_cuda.viterbi_batch(torch.zeros((1, 2, big), device=cuda), tl[:1],
+                                   torch.zeros((1, 3, big), device=cuda))
