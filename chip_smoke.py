@@ -11,9 +11,15 @@ non-zero:
   3. each kernel against its plain PyTorch version on the card, with
      kernel / plain / library-call times (CUDA events):
      - the MFCC at the extraction path's shapes (16 x 100 s, and a small
-       ragged batch), dithered and undithered;
-     - the Viterbi at B=32 x T=1024 x S=512, at B=32 x T=2048 x S=144
-       with ragged lengths, and on a tie-heavy case.
+       ragged batch with utterances shorter than the tail window), and
+       the wide 16 kHz / 40-mel configuration, dithered and undithered;
+       both bounds (fp32 CUDA cores, and the 3xTF32 tensor-core product
+       the kernel uses) and the kernel-to-library ratio;
+     - the Viterbi at B=32 x T=1024 x S in {256, 512}, at B=128 x
+       T=1024 x S=256, at B=32 x T=2048 x S=144 with ragged lengths, on a
+       tie-heavy case, and at
+       S in {128, 1024, 1100} with skips 1 and 8 and lengths 1, 2 and
+       ragged; per-step microseconds.
   4. the extraction path at full width: synthetic corpus ->
      prepare_features_nosil -> extract_and_score (full-size V2 x-vector,
      seeded random weights) -> backend_eval, with the kernels' launch
@@ -45,11 +51,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published dense peaks by card: (fp32 FLOP/s outside the tensor cores,
-# memory bytes/s), NVIDIA data sheets.  Matched on the device name.
+# memory bytes/s, TF32 tensor-core FLOP/s), NVIDIA data sheets.  Matched
+# on the device name.
 PEAKS = (
-    ("H100 PCIe", 51.2e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 3.9e12),
-    ("H100", 67.0e12, 3.35e12),  # SXM
+    ("H100 PCIe", 51.2e12, 2.0e12, 378e12),
+    ("H100 NVL", 60.0e12, 3.9e12, 417.5e12),
+    ("H100", 67.0e12, 3.35e12, 495e12),  # SXM
 )
 TOL = 2e-3  # max abs error of a kernel against its plain version (cepstra)
 SR = 8000
@@ -69,9 +76,9 @@ def nvidia_smi_line() -> str:
 
 
 def peaks(name: str):
-    for key, flops, bw in PEAKS:
+    for key, flops, bw, tf32 in PEAKS:
         if key in name:
-            return key, flops, bw
+            return key, flops, bw, tf32
     raise RuntimeError(f"no published peak for {name!r}")
 
 
@@ -129,13 +136,14 @@ def phase_environment():
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    key, flops, bw = peaks(name)
+    key, flops, bw, tf32 = peaks(name)
     log(f"phase 1 environment: torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; card {smi}; device {name!r} x"
         f"{torch.cuda.device_count()}; peaks ({key}) fp32 {flops / 1e12:.1f} TFLOP/s, "
+        f"TF32 tensor cores {tf32 / 1e12:.1f} TFLOP/s, "
         f"memory {bw / 1e12:.2f} TB/s; tf32 matmul "
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}")
-    return {"smi": smi, "name": name, "peak_flops": flops, "peak_bw": bw}
+    return {"smi": smi, "name": name, "peak_flops": flops, "peak_bw": bw, "peak_tf32": tf32}
 
 
 def phase_build():
@@ -166,8 +174,12 @@ def _mfcc_inputs(b, lengths, n, seed, device):
     return x.contiguous(), lens, seeds
 
 
+WIDE = dict(sample_rate=16000, num_mel_bins=40, num_ceps=40, low_freq=40.0,
+            high_freq=-200.0, use_energy=False)  # hires 16 kHz, two 64-bin passes more
+
+
 def phase_kernels(env, device="cuda"):
-    """The MFCC kernel against its plain version; times; bound."""
+    """The MFCC kernel against its plain version; times; both bounds."""
     import torch
 
     from sepi_tpu_torch.config import FrontendConfig
@@ -179,15 +191,20 @@ def phase_kernels(env, device="cuda"):
     t = int(num_frames(n, cfg))
     x, lens, seeds = _mfcc_inputs(BENCH_B, [n] * BENCH_B, n, 0, device)
     worst = 0.0
-    cases = [("bench 16x100s", x, lens, seeds, t)]
+    cases = [("bench 16x100s", cfg, x, lens, seeds, t)]
     rn = int(3.0 * SR)
-    rx, rl, rs = _mfcc_inputs(3, [rn, int(1.83 * SR), 207], rn, 1, device)
-    cases.append(("ragged 3s/1.83s/207", rx, rl, rs, int(num_frames(rn, cfg))))
-    for label, xi, li, si, ti in cases:
+    # 207 samples: every frame a tail frame; 100 and 41: shorter than the tail window
+    rx, rl, rs = _mfcc_inputs(5, [rn, int(1.83 * SR), 207, 100, 41], rn, 1, device)
+    cases.append(("ragged 3s/1.83s/207/100/41", cfg, rx, rl, rs, int(num_frames(rn, cfg))))
+    wide = FrontendConfig(**WIDE)
+    wn = 10 * wide.sample_rate
+    wx, wl, ws = _mfcc_inputs(4, [wn, int(0.37 * wn), 399, 81], wn, 3, device)
+    cases.append(("hires16k 4x10s ragged", wide, wx, wl, ws, int(num_frames(wn, wide))))
+    for label, ci, xi, li, si, ti in cases:
         for dithered in (True, False):
             sd = si if dithered else None
-            out_k, m_k = mfcc_cuda.mfcc_fused(xi, li, cfg, ti, sd)
-            out_p, m_p = mfcc_cuda.mfcc_fused_reference(xi, li, cfg, ti, sd)
+            out_k, m_k = mfcc_cuda.mfcc_fused(xi, li, ci, ti, sd)
+            out_p, m_p = mfcc_cuda.mfcc_fused_reference(xi, li, ci, ti, sd)
             torch.cuda.synchronize()
             if not torch.equal(m_k, m_p):
                 raise AssertionError(f"mfcc {label}: masks differ")
@@ -201,10 +218,10 @@ def phase_kernels(env, device="cuda"):
             worst = max(worst, err)
 
     c = mfcc_cuda._consts(cfg, x.device)
-    t_valid = num_frames(lens, cfg).clamp(max=t).to(torch.int32)
     scratch = torch.empty((BENCH_B, t, cfg.num_ceps), device=x.device)
+    mask = torch.empty((BENCH_B, t), dtype=torch.bool, device=x.device)
     ms = time_ms(lambda: mfcc_cuda.mfcc_fused(x, lens, cfg, t, seeds))
-    kernel_ms = time_ms(lambda: mfcc_cuda._launch(x, t_valid, seeds, cfg, t, c, scratch))
+    kernel_ms = time_ms(lambda: mfcc_cuda._launch(x, lens, seeds, cfg, t, c, scratch, mask))
     plain_ms = time_ms(lambda: mfcc_cuda.mfcc_fused_reference(x, lens, cfg, t, seeds))
     frames = mfcc_cuda._padded_signal(x, cfg, (t - 1) * cfg.frame_shift + cfg.frame_length)
     frames = frames.unfold(1, cfg.frame_length, cfg.frame_shift).reshape(-1, cfg.frame_length)
@@ -212,8 +229,10 @@ def phase_kernels(env, device="cuda"):
     library_ms = time_ms(lambda: torch.matmul(frames, c.basis))
     km, mel, ceps = c.mel.shape[0], cfg.num_mel_bins, cfg.num_ceps
     flops = 2 * BENCH_B * t * (cfg.frame_length * 2 * km + km * mel + mel * ceps)
-    nbytes = BENCH_B * n * 4 + BENCH_B * t * ceps * 4 + BENCH_B * 8
-    t_ops = flops / env["peak_flops"] * 1e3
+    # samples and lengths/seeds read once; cepstra and mask written once
+    nbytes = BENCH_B * n * 4 + BENCH_B * t * ceps * 4 + BENCH_B * t + BENCH_B * 8
+    t_fp32 = flops / env["peak_flops"] * 1e3
+    t_3xtf32 = 3 * flops / env["peak_tf32"] * 1e3
     t_bytes = nbytes / env["peak_bw"] * 1e3
     rec = {
         "name": "mfcc_fused", "route": "cuda",
@@ -221,15 +240,20 @@ def phase_kernels(env, device="cuda"):
         "replaces": "sepi_tpu/ops/mfcc_pallas.py:105",
         "launches": 0, "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": max(t_3xtf32, t_bytes),
+        "bound_by": "operations" if t_3xtf32 >= t_bytes else "bytes",
         "library_ms": library_ms,
         "kernel_only_ms": kernel_ms,
+        "bound_fp32_ms": max(t_fp32, t_bytes),
+        "bound_bytes_ms": t_bytes,
     }
     log(f"phase 3 kernels: mfcc_fused 16x100s dithered: wrapper {ms:.3f} ms "
-        f"(kernel alone {kernel_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-        f"DFT GEMM (torch.matmul) {library_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-        f"({rec['bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"(kernel alone {kernel_ms:.3f} ms, one launch), plain {plain_ms:.3f} ms, "
+        f"DFT GEMM (torch.matmul) {library_ms:.3f} ms, wrapper/library "
+        f"{ms / library_ms:.2f}x; bounds: 3xTF32 operations {t_3xtf32:.3f} ms "
+        f"(3 x {flops / 1e9:.2f} GFLOP at {env['peak_tf32'] / 1e12:.0f} TFLOP/s, binds), "
+        f"fp32 operations {t_fp32:.3f} ms, bytes {t_bytes:.3f} ms ({nbytes / 1e6:.1f} MB); "
+        f"kernel at {100 * t_3xtf32 / kernel_ms:.1f}% of its bound; "
         f"max abs err {worst:.3e} <= {TOL}")
     return rec
 
@@ -430,31 +454,45 @@ def _viterbi_timing(env, emit, t_len, trans, skip=4):
     t_bytes = nbytes / env["peak_bw"] * 1e3
     t_ops = ops / env["peak_flops"] * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "step_us": 1e3 * ms / max(t - 1, 1),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "live_steps": live_steps}
 
 
 def phase_viterbi(env, device="cuda"):
     """The Viterbi kernel against its plain version at the reference's
-    alignment-benchmark shapes, ragged, and tie-heavy; times; bound."""
+    alignment-benchmark shapes, ragged, tie-heavy, and across the warp
+    kernel's layouts (K = 4 with skip 8, S not a multiple of 32, S = 1024)
+    and the block kernel (S > 1024); times; bound; per-step microseconds."""
     import numpy as np
 
     rng = np.random.default_rng(7)
     ragged = [2048, 1500, 777, 2] + rng.integers(1, 2049, size=28).tolist()
-    cases = {
-        "32x1024x512": _viterbi_inputs(32, 1024, 512, [1024] * 32, 0, device),
-        "32x2048x144 ragged": _viterbi_inputs(32, 2048, 144, ragged, 1, device),
-        "32x1024x512 tie-heavy": _viterbi_inputs(32, 1024, 512, [1024] * 32, 2, device,
-                                                 ties=True),
+    short = [1024, 1, 2] + rng.integers(1, 1025, size=13).tolist()
+    cases = {  # label: (inputs, skip, timed)
+        "32x1024x256": (_viterbi_inputs(32, 1024, 256, [1024] * 32, 3, device), 4, True),
+        "32x1024x512": (_viterbi_inputs(32, 1024, 512, [1024] * 32, 0, device), 4, True),
+        # four times the batch: one warp per utterance, so it should cost about the same
+        "128x1024x256": (_viterbi_inputs(128, 1024, 256, [1024] * 128, 8, device), 4, True),
+        "32x2048x144 ragged": (_viterbi_inputs(32, 2048, 144, ragged, 1, device), 4, True),
+        "32x1024x512 tie-heavy": (_viterbi_inputs(32, 1024, 512, [1024] * 32, 2, device,
+                                                  ties=True), 4, False),
+        "16x1024x128 skip8 ragged": (_viterbi_inputs(16, 1024, 128, short, 4, device,
+                                                     skip=8), 8, False),
+        "16x1024x1024 skip1 ragged": (_viterbi_inputs(16, 1024, 1024, short, 5, device,
+                                                      skip=1), 1, False),
+        "16x1024x1100 skip8 ragged": (_viterbi_inputs(16, 1024, 1100, short, 6, device,
+                                                      skip=8), 8, False),
     }
     worst = 0.0
     timed = {}
-    for label, args in cases.items():
-        worst = max(worst, _viterbi_check(label, *args))
-        if "tie" not in label:
-            timed[label] = _viterbi_timing(env, *args)
-    split = "; ".join(f"{k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
-                      f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}, {v['bytes'] / 1e6:.1f} MB)"
+    for label, (args, skip, timeit) in cases.items():
+        worst = max(worst, _viterbi_check(label, *args, skip=skip))
+        if timeit:
+            timed[label] = _viterbi_timing(env, *args, skip=skip)
+    split = "; ".join(f"{k}: kernel {v['ms']:.4f} ms ({v['step_us']:.4f} us a step), "
+                      f"plain {v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
+                      f"({v['bound_by']}, {v['bytes'] / 1e6:.1f} MB)"
                       for k, v in timed.items())
     log(f"phase 3 kernels: viterbi_batch {split}; max abs err {worst:.3e}; library_ms null: "
         f"no single PyTorch call computes a banded Viterbi")
@@ -621,7 +659,7 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
         err = _viterbi_check("s5 batch", emit, t_len, trans, skip)
         timing = _viterbi_timing(env, emit, t_len, trans, skip)
         log(f"  viterbi at the s5 path's largest batch {tuple(emit.shape)}: kernel "
-            f"{timing['ms']:.3f} ms, plain {timing['plain_ms']:.3f} ms, bound "
+            f"{timing['ms']:.4f} ms ({timing['step_us']:.4f} us a step), plain {timing['plain_ms']:.3f} ms, bound "
             f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}, {timing['bytes'] / 1e6:.1f} MB, "
             f"{timing['live_steps']} live steps x S)")
         out.update(viterbi_err=err, viterbi_shape=list(emit.shape), viterbi_timing=timing)

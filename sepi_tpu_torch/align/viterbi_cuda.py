@@ -66,10 +66,10 @@ def viterbi_batch_reference(state_emit: torch.Tensor, t_len: torch.Tensor,
 def _launch(state_emit, t_len, trans, skip, bps, delta) -> None:
     from ..build import load
 
-    lib = load("viterbi")
-    fn = lib.sepi_viterbi_batch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = load("viterbi").sepi_viterbi_batch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     b, t, s = state_emit.shape
     err = fn(state_emit.data_ptr(), t_len.data_ptr(), trans.data_ptr(), bps.data_ptr(),
              delta.data_ptr(), b, t, s, skip,

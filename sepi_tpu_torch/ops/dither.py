@@ -43,13 +43,19 @@ def u24(seed: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
 def hash_normal_pair(seed: torch.Tensor, counter: torch.Tensor,
                      span: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two independent standard normals per counter: one Box-Muller over
-    two 24-bit hash uniforms (counters ``c`` and ``c + span``), float32
-    term for term as the reference."""
+    two 24-bit hash uniforms (counters ``c`` and ``c + span``).
+
+    The uniforms and the angle are the reference's float32 values; the
+    transcendentals run in float64 and each output is rounded to float32
+    once, so the result is the correctly rounded normal whatever the CPU
+    library's float32 log/cos/sin path does (the reference stays within a
+    few ulps of it)."""
     counter = counter.to(torch.int64)
     u1 = (u24(seed, counter) + 1.0) * _INV_2_24  # (0, 1]: log-safe
-    ang = _ANG_SCALE * u24(seed, (counter + span) & MASK32)
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    return r * torch.cos(ang), r * torch.sin(ang)
+    ang = (_ANG_SCALE * u24(seed, (counter + span) & MASK32)).to(torch.float64)
+    r = torch.sqrt(-2.0 * torch.log(u1.to(torch.float64)))
+    return ((r * torch.cos(ang)).to(torch.float32),
+            (r * torch.sin(ang)).to(torch.float32))
 
 
 def hash_normal(seed: torch.Tensor, counter: torch.Tensor, span: int) -> torch.Tensor:

@@ -63,6 +63,40 @@ def test_mfcc_kernel_wide_config(cuda):
     assert float((got - ref).abs().max()) < 2e-3
 
 
+SRE8K = {}
+HIRES16K = dict(sample_rate=16000, num_mel_bins=40, num_ceps=40, low_freq=40.0,
+                high_freq=-200.0, use_energy=False)
+
+
+@pytest.mark.parametrize("conf", ["sre8k", "hires16k"])
+@pytest.mark.parametrize("dither", [0.0, 1.0])
+@pytest.mark.parametrize("snip", [False, True])
+def test_mfcc_kernel_configs_and_short_utterances(cuda, conf, dither, snip):
+    """One launch, no tail-patch launches: utterances shorter than a frame,
+    than the tail window, and ending inside and at the edge of a block."""
+    cfg = FrontendConfig(dither=dither, snip_edges=snip,
+                         **(SRE8K if conf == "sre8k" else HIRES16K))
+    flen, shift = cfg.frame_length, cfg.frame_shift
+    rng = np.random.default_rng(17 + int(dither) + 2 * snip)
+    n = 70 * shift + flen
+    lengths = [n, 64 * shift + shift // 2, 5 * shift, flen + 3, flen - 1, shift // 2 + 1, 1]
+    x = (rng.normal(size=(len(lengths), n)) * 2000).astype(np.float32)
+    for i, ln in enumerate(lengths):
+        x[i, ln:] = 0.0
+    x = torch.tensor(x, device=cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    seeds = torch.tensor(utt_seeds([f"u{i}" for i in range(len(lengths))]), device=cuda)
+    tmax = int(num_frames(n, cfg))
+    before = mfcc_cuda.mfcc_fused.launches
+    got, mask = mfcc_cuda.mfcc_fused(x, lens, cfg, tmax, seeds if dither else None)
+    ref, mref = mfcc_cuda.mfcc_fused_reference(x, lens, cfg, tmax, seeds if dither else None)
+    torch.cuda.synchronize()
+    assert mfcc_cuda.mfcc_fused.launches == before + 1
+    assert torch.equal(mask, mref)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) < 2e-3
+
+
 def test_mfcc_wrapper_rejects_bad_input(cuda):
     cfg = FrontendConfig()
     x = torch.zeros((2, 8000), device=cuda, dtype=torch.float64)
@@ -107,6 +141,24 @@ def test_viterbi_kernel_matches_plain(cuda, shape, tlen, ties):
     torch.cuda.synchronize()
     assert viterbi_cuda.viterbi_batch.launches == before + 1
     assert bp.dtype == torch.int8 and bp.shape == (shape[0], shape[1] - 1, shape[2])
+    assert torch.equal(bp, bp_r)
+    live = d_r > -1e29
+    assert float((d - d_r)[live].abs().max()) <= 1e-4
+    assert torch.equal(d[~live], d_r[~live])
+
+
+@pytest.mark.parametrize("s", [128, 144, 256, 512, 1024, 1100])
+@pytest.mark.parametrize("skip", [1, 4, 8])
+def test_viterbi_kernel_states_and_skips(cuda, s, skip):
+    """The warp kernel (S <= 1024, including K < skip and S not a multiple
+    of 32) and the block kernel (S > 1024), with lengths 1, 2 and ragged."""
+    rng = np.random.default_rng(1000 * skip + s)
+    tlen = [1, 2, 37, 50, 13]
+    emit, tl, trans = (torch.tensor(a, device=cuda)
+                       for a in _viterbi_inputs(rng, 5, 50, s, tlen, skip=skip))
+    bp, d = viterbi_cuda.viterbi_batch(emit, tl, trans, skip)
+    bp_r, d_r = viterbi_cuda.viterbi_batch_reference(emit, tl, trans, skip)
+    torch.cuda.synchronize()
     assert torch.equal(bp, bp_r)
     live = d_r > -1e29
     assert float((d - d_r)[live].abs().max()) <= 1e-4

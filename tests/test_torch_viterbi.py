@@ -131,3 +131,18 @@ def test_wrapper_dispatches_cpu_to_plain_without_counting():
         torch.from_numpy(emit), torch.from_numpy(tlen), torch.from_numpy(trans), 4)
     assert viterbi_cuda.viterbi_batch.launches == before
     assert torch.equal(bp, bp2) and torch.equal(d, d2)
+
+
+@pytest.mark.parametrize("skip", [1, 2, 8])
+@pytest.mark.parametrize("s", [45, 139])
+def test_plain_matches_jax_reference_across_skips(skip, s):
+    """skip widths other than the aligner's 4 and S not a multiple of 32:
+    the CUDA kernel lays S out as 32 lanes x K states and reaches s - skip
+    across lanes, so the plain version it is held against must match the
+    JAX reference for every skip."""
+    emit, tlen, trans = _inputs(40 + skip, 3, 25, s, skip, [25, 2, 1], skip_p=0.5)
+    bp, d = _port(emit, tlen, trans, skip)
+    bp_r, d_r = j_ref(jnp.asarray(emit), jnp.asarray(tlen), jnp.asarray(trans), skip)
+    _assert_same(bp, d, np.asarray(bp_r), np.asarray(d_r))
+    if skip > 1:  # at skip 1 the skip arc duplicates the likelier advance
+        assert (bp[0] == 2).sum() > 0
