@@ -33,6 +33,27 @@ non-zero:
      counts read around it; then the Viterbi held against its plain
      version on a batch the path gave it, and 8 utterances re-aligned
      on the CPU with the final model as the reference.
+  7. v2 training:
+     a. the step time at the reference's training bench shape (full-size
+        V2 x-vector, 5000 speakers, 64 chunks x 200 frames x 23, default
+        OptimizerConfig = Muon, fp32, TF32 off): single steps and a K=16
+        superstep, audio-seconds/s, the optimizer's share of a step
+        against forward+backward, peak memory;
+     b. the path at full width: synthetic corpus (32 speakers x 8 x 8 s)
+        -> prepare_features_nosil -> train_xvector_model (default
+        TrainConfig, 300 steps, checkpoints, held-out auto) ->
+        extract_and_score -> backend_eval, with the MFCC's launch count
+        read around it; scored in-domain (the training speakers' own
+        trials, as phase 4) and on 200 unseen speakers (2 x 2 s each,
+        backend trained on the training corpus), each beside the same path
+        with phase 4's seeded random weights.  In-domain the trained EER
+        must be no worse than the random weights' (both reach 0% on this
+        corpus, so "below" cannot show); the unseen speakers' EERs are
+        printed, not held (near chance for both);
+     c. the card against the CPU: the same initial weights and the same
+        3 sampler batches, 3 momentum-SGD steps each side held by the
+        trajectory measure, and one default (Muon) step held entry by
+        entry wherever the two gradients agree to 1%, the Muon matrix in l2.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -59,6 +80,11 @@ PEAKS = (
     ("H100", 67.0e12, 3.35e12, 495e12),  # SXM
 )
 TOL = 2e-3  # max abs error of a kernel against its plain version (cepstra)
+TRAIN_B, TRAIN_T, TRAIN_K = 64, 200, 16  # bench.py:160-191
+TRAIN_STEPS = 300
+TRAJ_TOL = 1e-3  # ||p_card - p_cpu|| / ||p_cpu - p_init|| over all parameters after 3 steps
+UNSEEN_SPEAKERS = 200
+MUON_L2_TOL = 1e-3  # the Muon matrix after one step, card vs CPU (l2 over the step)
 SR = 8000
 BENCH_B, BENCH_SECS = 16, 100.0
 
@@ -666,6 +692,332 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
     return out
 
 
+def _train_state(model_cfg, device, opt_cfg=None, seed=0, total_steps=1000):
+    """A seeded (Flax-style) x-vector and its optimizer chain on ``device``."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import XVector, lecun_normal_init
+    from sepi_tpu_torch.train import TrainState, build_optimizer
+
+    model = XVector(model_cfg)
+    lecun_normal_init(model, seed)
+    model.to(device)
+    chain, _ = build_optimizer(opt_cfg or OptimizerConfig(), total_steps)
+    return chain, TrainState(model, chain.init(dict(model.named_parameters())))
+
+
+def _profile_steps(fn, n=3, top=8):
+    """torch.profiler over ``n`` calls of ``fn`` after a warm-up: the top
+    kernels by device time (name, ms, calls), the summed device time of all
+    kernels and the host wall time of the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time / 1e3, c + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return [(name[:60], t, c) for name, (t, c) in ranked], busy_ms, wall_ms
+
+
+def phase_train_step(env, device="cuda"):
+    """7a: step time at the reference's training bench shape."""
+    import torch
+
+    from sepi_tpu_torch.models import V2_XVECTOR
+    from sepi_tpu_torch.train import make_superstep, make_xvec_step
+    from sepi_tpu_torch.train.optim import apply_updates, newton_schulz
+    from sepi_tpu_torch.train.trainer import _softmax_xent
+
+    cfg = dataclasses.replace(V2_XVECTOR, num_speakers=5000)
+    chain, state = _train_state(cfg, device)
+    step, sstep = make_xvec_step(chain), make_superstep(chain)
+    g = torch.Generator(device=device).manual_seed(0)
+    feats = torch.randn((TRAIN_K, TRAIN_B, TRAIN_T, cfg.feat_dim), generator=g, device=device)
+    labels = torch.randint(0, cfg.num_speakers, (TRAIN_K, TRAIN_B), generator=g, device=device,
+                           dtype=torch.int32)
+    ones = torch.ones(TRAIN_K, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single_ms = time_ms(lambda: step(state, feats[0], labels[0], 1.0), iters=20, warmup=3)
+    super_ms = time_ms(lambda: sstep(state, feats, labels, ones), iters=3, warmup=1) / TRAIN_K
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = step(state, feats[1], labels[1], 1.0)
+    if not all(bool(torch.isfinite(v)) for v in m.values()):
+        raise AssertionError(f"bench-shape step: non-finite metrics {m}")
+
+    params = state.params()
+
+    def fwd_bwd():
+        state.model.train()
+        loss = _softmax_xent(state.model(feats[0])["logits"], labels[0]).mean()
+        return torch.autograd.grad(loss, list(params.values()))
+
+    fb_ms = time_ms(fwd_bwd)
+    grads = dict(zip(params, fwd_bwd()))
+    opt_ms = time_ms(lambda: apply_updates(params, chain.update(grads, state.opt_state, params)))
+    ns_ms = time_ms(lambda: newton_schulz(grads["segment.output.weight"].T))
+    torch.backends.cudnn.benchmark = True  # cuDNN's own algorithm search, for comparison
+    try:
+        fb_bench_ms = time_ms(fwd_bwd)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    top, busy_ms, wall_ms = _profile_steps(lambda: step(state, feats[2], labels[2], 1.0))
+    rate = TRAIN_B * TRAIN_T * 0.01 / (single_ms / 1e3)
+    log(f"  7a torch.profiler over 3 single steps on {env['smi']}: device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall ({100 * (1 - busy_ms / wall_ms):.1f}% idle); top kernels "
+        f"by device time (ms, calls): " + "; ".join(f"{n} {t:.3f} ({c})" for n, t, c in top))
+    log(f"phase 7a train step: full-size V2 x-vector (5000 speakers), {TRAIN_B} x {TRAIN_T} x "
+        f"{cfg.feat_dim}, OptimizerConfig() (muon), fp32, TF32 off, on {env['smi']}: "
+        f"single step {single_ms:.3f} ms (median of 20, CUDA events), K={TRAIN_K} superstep "
+        f"{super_ms:.3f} ms a step (median of 3); {rate:.1f} audio-seconds/s at the single "
+        f"step; forward+backward {fb_ms:.3f} ms, optimizer chain {opt_ms:.3f} ms "
+        f"({100 * opt_ms / (fb_ms + opt_ms):.1f}% of the two; Newton-Schulz on the 512 x 5000 "
+        f"output {ns_ms:.3f} ms); forward+backward with cudnn.benchmark on {fb_bench_ms:.3f} "
+        f"ms; peak memory {peak_gb:.2f} GB")
+    return {"single_ms": single_ms, "super_ms": super_ms, "fb_ms": fb_ms, "opt_ms": opt_ms,
+            "ns_ms": ns_ms, "peak_gb": peak_gb}
+
+
+def phase_train_path(env, device="cuda", num_speakers=32, utts_per_speaker=8,
+                     duration_sec=8.0, num_steps=TRAIN_STEPS, model_cfg=None, train_cfg=None):
+    """7b: synthetic corpus -> features -> train_xvector_model ->
+    extract_and_score -> backend_eval, against the same path with phase
+    4's seeded random weights."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.config import TrainConfig
+    from sepi_tpu_torch.data import make_synthetic_corpus
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.recipes import (backend_eval, extract_and_score, pipeline,
+                                        prepare_features_nosil, train_xvector_model)
+    from sepi_tpu_torch.train.checkpoint import latest_checkpoint
+
+    corpus = make_synthetic_corpus(num_speakers=num_speakers, utts_per_speaker=utts_per_speaker,
+                                   duration_sec=duration_sec, seed=1)
+    unseen = make_synthetic_corpus(num_speakers=UNSEEN_SPEAKERS, utts_per_speaker=2,
+                                   duration_sec=2.0, seed=2, name="unseen")
+    enroll = {s: us[:1] for s, us in corpus.dataset.spk2utt.items()}
+    enroll_u = {s: us[:1] for s, us in unseen.dataset.spk2utt.items()}
+    ckpt = os.path.join(ROOT, "build", "smoke_train", "ckpt")
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    hist = []
+    secs = {}
+    orig_finalize = pipeline.finalize_batch_stats
+
+    def timed_finalize(*args, **kw):
+        t = time.perf_counter()
+        out = orig_finalize(*args, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs["calibration"] = time.perf_counter() - t
+        return out
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    mfcc_cuda.mfcc_fused.launches = 0
+    pipeline.finalize_batch_stats = timed_finalize
+    try:
+        t0 = time.perf_counter()
+        nosil = prepare_features_nosil(corpus.audio, device=device)
+        sync()
+        secs["features"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model, state, label_map = train_xvector_model(
+            nosil, corpus.dataset, model_cfg, train_cfg or TrainConfig(), num_steps=num_steps,
+            log=lambda n, task, m: hist.append((n, task, m)), checkpoint_dir=ckpt, device=device)
+        sync()
+        secs["training"] = time.perf_counter() - t0 - secs["calibration"]
+        latest = latest_checkpoint(ckpt)
+        nosil_u = prepare_features_nosil(unseen.audio, device=device)
+        t0 = time.perf_counter()
+        embs = extract_and_score(model, None, {**nosil, **nosil_u},
+                                 min_frames=model.cfg.min_frames, device=device)
+        secs["extraction"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result, _ = backend_eval(embs, corpus.dataset, corpus.trials, enroll)
+        secs["backend"] = time.perf_counter() - t0
+        result_u, _ = backend_eval(embs, corpus.dataset, unseen.trials, enroll_u)
+        launches = mfcc_cuda.mfcc_fused.launches
+    finally:
+        pipeline.finalize_batch_stats = orig_finalize
+        shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+
+    rand = random_xvector(model.cfg, seed=0, device=device)
+    embs_r = extract_and_score(rand, None, {**nosil, **nosil_u}, min_frames=model.cfg.min_frames,
+                               device=device)
+    result_r, _ = backend_eval(embs_r, corpus.dataset, corpus.trials, enroll)
+    result_ur, _ = backend_eval(embs_r, corpus.dataset, unseen.trials, enroll_u)
+
+    lengths = sorted(f.shape[0] for f in nosil.values())
+    valid = {}
+    for n, task, m in hist:
+        if task == "valid:xvec":
+            valid.setdefault(n, []).append(m["objf"])
+    valid_objf = [(n, float(np.mean(v))) for n, v in sorted(valid.items())]
+    values = [v for _, _, m in hist for v in m.values()]
+    r, rr = result.as_dict(), result_r.as_dict()
+    u, ur = result_u.as_dict(), result_ur.as_dict()
+    problems = []
+    if device != "cpu" and launches <= 0:
+        problems.append("the training path never launched the MFCC kernel")
+    if latest != num_steps:
+        problems.append(f"latest checkpoint {latest}, expected {num_steps}")
+    if len(valid_objf) < 2 or not valid_objf[-1][1] > valid_objf[0][1]:
+        problems.append(f"held-out objf did not rise: {valid_objf}")
+    if not np.all(np.isfinite(values)) or not all(np.isfinite(v) for v in
+                                                  list(r.values()) + list(u.values())):
+        problems.append("non-finite metric")
+    if not r["eer_pct"] <= rr["eer_pct"]:
+        problems.append(f"in-domain: trained EER {r['eer_pct']}% above random-weight "
+                        f"{rr['eer_pct']}%")
+    train_recs = [(n, m["objf"], m["accuracy"]) for n, task, m in hist if task == "xvec"]
+    log(f"phase 7b train path on {env['smi'] if env else device}: {len(corpus.audio)} utts "
+        f"({num_speakers} speakers, voiced frames {lengths[0]}..{lengths[-1]}) -> "
+        f"{len(label_map)}-speaker V2 x-vector, {num_steps} steps of TrainConfig(); "
+        f"mfcc_fused launches {launches}; latest checkpoint {latest}; train (step, objf, acc) "
+        f"{[(n, round(o, 4), round(a, 4)) for n, o, a in train_recs]}; held-out objf "
+        f"{[(n, round(o, 4)) for n, o in valid_objf]}; in-domain EER {r['eer_pct']:.3f}% "
+        f"minDCF08 {r['min_dcf08']:.4f} minDCF10 {r['min_dcf10_x1000'] / 1000:.4f} (random "
+        f"weights: EER {rr['eer_pct']:.3f}% minDCF08 {rr['min_dcf08']:.4f}; "
+        f"{r['num_target']} target / {r['num_nontarget']} nontarget trials); "
+        f"{UNSEEN_SPEAKERS} unseen speakers: EER {u['eer_pct']:.3f}% minDCF08 "
+        f"{u['min_dcf08']:.4f} (random weights: EER {ur['eer_pct']:.3f}% minDCF08 "
+        f"{ur['min_dcf08']:.4f}; {u['num_target']} target / {u['num_nontarget']} nontarget "
+        f"trials); wall s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f"; {num_steps / secs['training']:.2f} steps/s")
+    if problems:
+        raise AssertionError("phase 7b: " + "; ".join(problems))
+    return {"launches": launches, "nosil": nosil, "dataset": corpus.dataset, "secs": secs,
+            "eer": r["eer_pct"], "eer_random": rr["eer_pct"], "eer_unseen": u["eer_pct"],
+            "eer_unseen_random": ur["eer_pct"]}
+
+
+def _flat(model):
+    return {n: p.detach().cpu().double() for n, p in model.named_parameters()}
+
+
+def _start_grads(model, batch, device):
+    """The loss gradient of ``model`` on ``batch`` (train mode), on the
+    host, without touching the model's state."""
+    import copy
+
+    import torch
+
+    from sepi_tpu_torch.train.trainer import _softmax_xent
+
+    model = copy.deepcopy(model).train()
+    params = dict(model.named_parameters())
+    loss = _softmax_xent(model(torch.from_numpy(batch.feats).to(device))["logits"],
+                         torch.from_numpy(batch.labels).to(device)).mean()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {n: g.detach().cpu().double() for n, g in zip(params, grads)}
+
+
+def _norm(tensors) -> float:
+    import torch
+
+    return float(torch.sqrt(sum(torch.sum(t * t) for t in tensors)))
+
+
+def phase_train_agreement(env, nosil, dataset, device="cuda", model_cfg=None, batch_size=32):
+    """7c: the same weights and batches on the card and on the CPU."""
+    import torch
+
+    from sepi_tpu_torch.config import ChunkConfig, OptimizerConfig
+    from sepi_tpu_torch.data import ChunkSampler
+    from sepi_tpu_torch.models import V2_XVECTOR
+    from sepi_tpu_torch.train import make_xvec_step
+
+    label_map = dataset.speaker_label_map()
+    cfg = model_cfg or dataclasses.replace(V2_XVECTOR, num_speakers=len(label_map))
+    sampler = ChunkSampler(nosil, dataset, ChunkConfig(), batch_size, seed=7)
+    batches = [sampler.sample_batch() for _ in range(3)]
+    out = {}
+    for name, opt, n_steps in (("none", OptimizerConfig(preconditioner="none"), 3),
+                               ("muon", OptimizerConfig(), 1)):
+        chain_d, state_d = _train_state(cfg, device, opt, seed=3)
+        chain_c, state_c = _train_state(cfg, "cpu", opt, seed=3)
+        p0 = _flat(state_c.model)
+        if name == "muon":  # both gradients at the start: where their signs differ
+            grads = {dev: _start_grads(st.model, batches[0], dev)
+                     for dev, st in ((device, state_d), ("cpu", state_c))}
+        metrics = []
+        for b in batches[:n_steps]:
+            md = make_xvec_step(chain_d)(state_d, torch.from_numpy(b.feats).to(device),
+                                         torch.from_numpy(b.labels).to(device), 1.0)
+            mc = make_xvec_step(chain_c)(state_c, torch.from_numpy(b.feats),
+                                         torch.from_numpy(b.labels), 1.0)
+            metrics.append((float(md["objf"]), float(mc["objf"])))
+        pd, pc = _flat(state_d.model), _flat(state_c.model)
+        if name == "none":
+            err = _norm([pd[k] - pc[k] for k in pc]) / _norm([pc[k] - p0[k] for k in pc])
+            worst = max((float(torch.linalg.norm(pd[k] - pc[k])
+                               / torch.linalg.norm(pc[k] - p0[k])), k) for k in pc)
+            ok = err <= TRAJ_TOL
+            out[name] = err
+            msg = (f"3 momentum-SGD steps: ||p_card - p_cpu|| / ||p_cpu - p_init|| over all "
+                   f"parameters {err:.3e} (largest for one parameter {worst[0]:.3e}, {worst[1]})")
+        else:
+            # Adam's first update is ~1.47 lr g / (|g| + 1e-8): where the two
+            # gradients do not agree to 1% (a true gradient of ~0 under
+            # rounding noise) or |g| nears Adam's eps, the entry can take
+            # any step in [-1.47 lr, 1.47 lr]; everywhere else it must agree.  The
+            # Muon matrix is held in l2: Newton-Schulz maps small singular
+            # values up by as much as 3.4445^5, so the two gradients' small
+            # differences grow there (tests/test_torch_gpu.py holds the
+            # chain on identical gradients entry by entry)
+            worst, flipped, ambiguous, muon_rel = 0.0, 0, 0, 0.0
+            for k in pc:
+                gd, gc = grads[device][k], grads["cpu"][k]
+                if gc.ndim == 2:
+                    muon_rel = float(torch.linalg.norm(pd[k] - pc[k])
+                                     / torch.linalg.norm(pc[k] - p0[k]))
+                    continue
+                stepsz = float((pc[k] - p0[k]).abs().max())
+                firm = ((gd - gc).abs() <= 1e-2 * gc.abs()) & (gc.abs() >= 1e-6)
+                diff = (pd[k] - pc[k]).abs()
+                if bool(firm.any()):
+                    worst = max(worst, float(diff[firm].max()) / stepsz)
+                ambiguous += int((~firm).sum())
+                flipped += int((diff > 1e-3 * stepsz).sum())
+            total = sum(v.numel() for k, v in pc.items() if v.ndim != 2)
+            ok = worst <= 1e-3 and flipped < 0.01 * total and muon_rel <= MUON_L2_TOL
+            out[name] = worst
+            out["muon_l2"] = muon_rel
+            msg = (f"1 Muon step: Adam entries whose gradients agree to 1% (|g| >= 1e-6) within "
+                   f"{worst:.3e} of the step; {ambiguous} of {total} Adam entries with "
+                   f"gradients apart by more than 1% or below 1e-6, {flipped} off by more "
+                   f"than 1e-3 of the step; the Muon matrix ||p_card - p_cpu|| / "
+                   f"||p_cpu - p_init|| {muon_rel:.3e} (limit {MUON_L2_TOL})")
+        log(f"  7c {name} on {env['smi'] if env else device}: {msg}; objf card/cpu "
+            f"{[(round(a, 6), round(b, 6)) for a, b in metrics]}")
+        if not ok:
+            raise AssertionError(f"phase 7c {name}: card and CPU disagree: {msg}")
+    log(f"phase 7c train card vs CPU on {env['smi'] if env else device}: full-width V2 x-vector "
+        f"({len(label_map)} speakers), 3 sampler batches of {batch_size} chunks, seed 3: "
+        f"momentum SGD {out['none']:.3e} <= {TRAJ_TOL}; Muon step: Adam entries on "
+        f"agreeing gradients {out['muon']:.3e} <= 1e-3, the Muon matrix {out['muon_l2']:.3e} "
+        f"<= {MUON_L2_TOL}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -685,6 +1037,16 @@ def main() -> int:
     phase_throughput(env)
     s5 = phase_s5(env)
     mfcc["launches_s5_path"] = s5["launches"]["mfcc_fused"]
+    t7 = [time.perf_counter()]
+    phase_train_step(env)
+    t7.append(time.perf_counter())
+    train = phase_train_path(env)
+    mfcc["launches_train_path"] = train["launches"]
+    t7.append(time.perf_counter())
+    phase_train_agreement(env, train["nosil"], train["dataset"])
+    t7.append(time.perf_counter())
+    log(f"phase 7 wall on {env['smi']}: 7a {t7[1] - t7[0]:.1f} s, 7b {t7[2] - t7[1]:.1f} s, "
+        f"7c {t7[3] - t7[2]:.1f} s")
     mfcc["max_abs_err"] = max(mfcc["max_abs_err"], s5["mfcc_err"])
     timing = s5["viterbi_timing"]
     vit_rec = {

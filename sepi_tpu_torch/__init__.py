@@ -8,9 +8,12 @@ same inputs:
   EER/minDCF);
 - the s5 forced aligner (monophone Viterbi-EM -> tied senone tree ->
   LDA+MLLT -> context-dependent re-alignment -> fMLLR SAT), with the
-  batched Viterbi as a hand-written Hopper kernel.
+  batched Viterbi as a hand-written Hopper kernel;
+- v2 x-vector training (chunk sampler -> cross-entropy steps with the
+  Muon/Adam or momentum-SGD chain -> checkpoints and tail combination ->
+  batch-norm calibration).
 Imports torch and numpy only; kernels build with nvcc at first use.
 """
 
-from . import align, backend, config, data, metrics, models, ops, recipes  # noqa: F401
+from . import align, backend, config, data, metrics, models, ops, recipes, train, utils  # noqa: F401
 from .device import resolve_device  # noqa: F401

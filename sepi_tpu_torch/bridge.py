@@ -15,6 +15,10 @@ numpy (or array-like) leaves; nothing of JAX is imported.  Layouts:
   reference's batchnorm has none); ``batch_stats .../mean``/``var`` ->
   ``running_mean``/``running_var``.
 - ``segment/output`` Dense kernel (in, out) -> ``Linear.weight`` (out, in).
+
+`flax_variables_from_state_dict` is the inverse: a port x-vector's
+`state_dict` -> the reference's ``{'params', 'batch_stats'}`` tree of
+numpy arrays, so a model trained in the port loads into the reference.
 """
 
 from __future__ import annotations
@@ -56,6 +60,41 @@ def xvector_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         out["segment.output.weight"] = _t(np.asarray(seg["output"]["kernel"]).T)
         out["segment.output.bias"] = _t(seg["output"]["bias"])
     return out
+
+
+def flax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """A port `state_dict` -> ``{'params', 'batch_stats'}`` numpy trees in
+    the reference's layout (the inverse of `xvector_state_dict_from_flax`).
+    The batchnorm's offset must be zero: the reference has none."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, path, value):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value
+
+    for name, t in state_dict.items():
+        *path, leaf = name.split(".")
+        a = t.detach().cpu().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if path and path[-1] == "batchnorm":
+            if leaf == "bias":
+                if np.any(a != 0):
+                    raise ValueError(f"{name}: the reference's batchnorm has no offset")
+                continue
+            if leaf == "weight":
+                put(params, path + ["scale"], a.copy())
+            else:
+                put(stats, path + [{"running_mean": "mean", "running_var": "var"}[leaf]], a.copy())
+        elif leaf == "weight":
+            # Conv1d (out, in, k) -> (k, in, out); Linear (out, in) -> (in, out)
+            put(params, path + ["kernel"], np.ascontiguousarray(a.T if a.ndim == 2
+                                                               else a.transpose(2, 1, 0)))
+        else:
+            put(params, path + [leaf], a.copy())
+    return {"params": params, "batch_stats": stats}
 
 
 def mono_aligner_from_jax(means, vars, mix_w, loop_logp, phones, states_per_phone,

@@ -1,9 +1,10 @@
 """The configs of the ported paths.
 
 A copy of the dataclasses these paths read from `sepi_tpu/config.py`
-(`FrontendConfig`, `VadConfig`, `CmvnConfig`, `ExtractConfig`,
-`BackendConfig`, `AlignConfig`), with the same fields and defaults, so
-a config built for either package means the same thing in the other.
+(`FrontendConfig`, `VadConfig`, `CmvnConfig`, `ChunkConfig`,
+`OptimizerConfig`, `TrainConfig`, `ExtractConfig`, `BackendConfig`,
+`AlignConfig`), with the same fields and defaults, so a config built for
+either package means the same thing in the other.
 """
 
 from __future__ import annotations
@@ -89,6 +90,72 @@ class CmvnConfig:
     window: int = 300
     center: bool = True
     normalize_variance: bool = False
+
+    replace = _replace
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkConfig:
+    """Training-chunk sampling (replaces the egs allocation pipeline):
+    chunk lengths drawn per batch from ``num_buckets`` static lengths (the
+    per-archive-constant-length invariant, `get_egs_xvec.sh:9-14`),
+    speaker-balanced draws (`allocate_egs_new.py`)."""
+
+    min_chunk_len: int = 200
+    max_chunk_len: int = 400
+    num_buckets: int = 8
+    frames_per_chunk_avg: int = 300
+
+    replace = _replace
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """SGD options matching the nnet3 trainer flags.
+
+    The effective LR decays exponentially from ``initial_lr`` to
+    ``final_lr`` over training (`steps/libs/nnet3/train/common.py:644-657`).
+    ``shrink_iterations`` spreads the reference's once-per-iteration
+    proportional shrink over per-minibatch steps.  ``preconditioner``:
+    "muon" (default) = Newton-Schulz orthogonalized momentum on matrix
+    parameters and Adam on the rest; "none" = momentum SGD.
+    """
+
+    initial_lr: float = 1e-3
+    final_lr: float = 1e-4
+    momentum: float = 0.5
+    max_param_change: float = 2.0
+    proportional_shrink: float = 10.0
+    shrink_iterations: int = 120
+    l2_regularize: float = 0.0
+    num_epochs: int = 3
+    shrink_guard: float = 0.5  # train_cvector_dnn.py:292-296
+    preconditioner: str = "muon"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training options.  ``compute_dtype`` other than "float32" is not
+    ported yet; ``profile`` writes a `torch.profiler` trace per checkpoint
+    segment under ``<checkpoint_dir>/../profile/seg<start>-<end>``."""
+
+    optimizer: OptimizerConfig = OptimizerConfig()
+    chunks: ChunkConfig = ChunkConfig()
+    batch_size: int = 64
+    am_batch_size: int = 256
+    am_weight: float = 1.0
+    xvec_weight: float = 1.0
+    repeats_per_spk: int = 0  # 0 = auto-balance
+    compute_dtype: str = "float32"
+    seed: int = 123
+    steps_per_eval: int = 100
+    checkpoint_every: int = 100
+    keep_checkpoint_every: int = 10  # preserve-model-interval
+    # train steps run back to back from one stacked batch (a superstep)
+    steps_per_dispatch: int = 1
+    # background-thread batch prefetch depth (ark,bg: analog); 0 disables
+    prefetch: int = 2
+    profile: bool = False
 
     replace = _replace
 

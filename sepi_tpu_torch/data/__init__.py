@@ -1,8 +1,15 @@
+from .featstore import PrefetchLoader
 from .manifest import Dataset, Trial, Utterance
+from .sampler import ChunkBatch, ChunkSampler, bucket_lengths, diagnostic_lengths
 from .synthetic import PhoneticCorpus, SyntheticCorpus, make_phonetic_corpus, make_synthetic_corpus
 
 __all__ = [
+    "ChunkBatch",
+    "ChunkSampler",
     "Dataset",
+    "PrefetchLoader",
+    "bucket_lengths",
+    "diagnostic_lengths",
     "PhoneticCorpus",
     "SyntheticCorpus",
     "Trial",

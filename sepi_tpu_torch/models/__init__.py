@@ -1,7 +1,9 @@
-from .tdnn import SegmentHead, StatsPooling, Stream, TdnnLayer, TdnnSpec, TdnnStack
+from .tdnn import (BatchNorm, SegmentHead, StatsPooling, Stream, TdnnLayer, TdnnSpec, TdnnStack,
+                   batch_moments, lecun_normal_init)
 from .xvector import V2_XVECTOR, XVector, XVectorConfig
 
 __all__ = [
+    "BatchNorm",
     "SegmentHead",
     "StatsPooling",
     "Stream",
@@ -11,4 +13,6 @@ __all__ = [
     "V2_XVECTOR",
     "XVector",
     "XVectorConfig",
+    "batch_moments",
+    "lecun_normal_init",
 ]

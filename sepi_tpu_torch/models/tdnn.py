@@ -9,10 +9,12 @@ the affine pre-activation.  Public functions keep the reference's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -64,21 +66,104 @@ class Stream:
     right: int
 
 
-class TdnnLayer(nn.Module):
-    """affine (VALID dilated Conv1d) -> ReLU -> BatchNorm on (B, C, T).
+class BatchNorm(nn.Module):
+    """Batch norm over (B, C, T) with Flax's conventions (`nn.BatchNorm`
+    as the reference's TdnnLayer uses it).
 
-    The batchnorm keeps a scale and no bias: its bias is held at zero and
-    never trains, matching Kaldi's batchnorm-component.  Its EMA momentum
-    0.05 is the reference's Flax decay 0.95.
+    - Train mode normalises with the batch mean and the *biased* batch
+      variance E[x^2] - E[x]^2 (clamped at 0), and updates the running
+      statistics with decay 0.95: ``running = 0.95 running + 0.05 batch``,
+      the biased variance included (`torch.nn.BatchNorm1d` would store
+      the unbiased one: 64/63 apart in the segment layers, where the
+      statistics reduce over the batch only).
+    - Eval mode normalises with the running statistics.
+    - ``weight`` is the trainable scale; ``bias`` is a buffer held at 0
+      (Kaldi's batchnorm-component has no offset), so no optimizer sees it.
+    - While ``moments`` is a list (see `batch_moments`), a train-mode
+      forward appends its (mean, var) there instead of updating the
+      running statistics.
     """
+
+    def __init__(self, dim: int, eps: float = 1e-3, decay: float = 0.95):
+        super().__init__()
+        self.eps = eps
+        self.decay = decay
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.register_buffer("bias", torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.int64))
+        self.moments: Optional[list] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        mean = x.mean((0, 2))
+        var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+        if self.moments is not None:
+            self.moments.append((mean.detach(), var.detach()))
+        else:
+            with torch.no_grad():
+                d = self.decay
+                self.running_mean.copy_(d * self.running_mean + (1 - d) * mean)
+                self.running_var.copy_(d * self.running_var + (1 - d) * var)
+                self.num_batches_tracked += 1
+        # Flax's order: (x - mean) * (rsqrt(var + eps) * scale)
+        return (x - mean[:, None]) * (torch.rsqrt(var + self.eps) * self.weight)[:, None]
+
+
+@contextlib.contextmanager
+def batch_moments(model: nn.Module) -> Iterator[Dict[str, list]]:
+    """Inside the block, every `BatchNorm` of ``model`` records the batch
+    (mean, biased var) of each train-mode forward and leaves its running
+    statistics alone.  Yields module name -> that list."""
+    bns = {name: m for name, m in model.named_modules() if isinstance(m, BatchNorm)}
+    for m in bns.values():
+        m.moments = []
+    try:
+        yield {name: m.moments for name, m in bns.items()}
+    finally:
+        for m in bns.values():
+            m.moments = None
+
+
+# std of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_init(model: nn.Module, seed: int) -> None:
+    """Flax's default initialisation, from a seeded torch generator:
+    `Conv1d`/`Linear` weights lecun-normal (a normal truncated at two
+    standard deviations, rescaled to variance 1/fan_in, fan_in =
+    kernel size x input channels), biases 0, batch-norm scales 1 and
+    fresh statistics.  The draws are not Flax's own numbers."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv1d, nn.Linear)):
+                w = m.weight
+                fan_in = w[0].numel()
+                std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+                cpu = torch.empty(w.shape)
+                nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std, generator=g)
+                w.copy_(cpu)
+                m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+                m.num_batches_tracked.zero_()
+
+
+class TdnnLayer(nn.Module):
+    """affine (VALID dilated Conv1d) -> ReLU -> BatchNorm on (B, C, T)."""
 
     def __init__(self, spec: TdnnSpec, in_dim: int):
         super().__init__()
         self.affine = nn.Conv1d(in_dim, spec.dim, spec.kernel_size,
                                 dilation=spec.dilation)
-        self.batchnorm = nn.BatchNorm1d(spec.dim, eps=1e-3, momentum=0.05)
-        nn.init.zeros_(self.batchnorm.bias)
-        self.batchnorm.bias.requires_grad_(False)
+        self.batchnorm = BatchNorm(spec.dim)
 
     def forward(self, x: torch.Tensor, return_affine: bool = False):
         affine = self.affine(x)

@@ -7,18 +7,20 @@ Port of the serving half of `sepi_tpu/recipes/pipeline.py`:
                             silence; `v2/run_sre10.sh:80-165`)
   prepare_features_phonetic = the same chain keeping the with-silence
                             stream and the VAD mask (the aligner's input)
+  train_xvector_model     = run_xvector_new.sh stages 4-6 (egs + train)
   extract_and_score       = extract_xvectors_new.sh (chunked forward)
   backend_eval            = mean/LDA/PLDA/scoring/EER
                             (`v2/run_sre10.sh:221-334`)
 
 Signatures follow the reference plus ``device=`` (default "cuda").  The
 reference's PRNG ``key`` that salts the dither is a plain int here, and
-the training stages and the device mesh wait for later work.
+the device mesh waits for later work.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,15 +29,38 @@ import torch
 from ..backend.lda import compute_lda
 from ..backend.plda import adapt_plda, score_trials, train_plda
 from ..backend.vector import length_normalize, subtract_global_mean
-from ..config import BackendConfig, CmvnConfig, ExtractConfig, FrontendConfig, VadConfig
+from ..config import (
+    BackendConfig,
+    CmvnConfig,
+    ExtractConfig,
+    FrontendConfig,
+    TrainConfig,
+    VadConfig,
+)
 from ..data.manifest import Dataset, Trial
-from ..device import DeviceLike
+from ..data.sampler import ChunkSampler
+from ..device import DeviceLike, resolve_device
 from ..extract import EmbeddingExtractor
 from ..metrics.det import EvalResult, evaluate_scores, split_scores_by_trials
+from ..models import XVector, XVectorConfig
 from ..ops.cmvn import sliding_cmvn
 from ..ops.dither import utt_seeds
 from ..ops.features import FeatureExtractor
 from ..ops.vad import energy_vad
+from ..train import (
+    Trainer,
+    build_optimizer,
+    combine_checkpoints,
+    create_train_state,
+    finalize_batch_stats,
+    load_checkpoint,
+    make_eval_step,
+    make_superstep,
+    make_xvec_step,
+    save_checkpoint,
+)
+from ..train.checkpoint import latest_checkpoint, parameter_progress
+from ..utils.logging import profile
 
 
 def _shape_bucket(n: int, grid: int, growth: float = 1.3) -> int:
@@ -175,6 +200,206 @@ def prepare_features_phonetic(
             if v.any():
                 nosil[utt_id] = f[v]
     return PhoneticFeatures(full, voiced_out, nosil)
+
+
+def batch_iterator(sampler, train_cfg: TrainConfig):
+    """Training batch stream with background prefetch (the `ark,bg:`
+    analog), so sampling overlaps device compute.  Close the returned
+    iterator (it owns a producer thread) when training finishes."""
+    it = iter(sampler)
+    if train_cfg.prefetch > 0:
+        from ..data.featstore import PrefetchLoader
+
+        it = PrefetchLoader(it, depth=train_cfg.prefetch)
+    return it
+
+
+def _host_params(state) -> Dict[str, torch.Tensor]:
+    return {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+
+
+def run_checkpointed(trainer, it, num_steps: int, train_cfg: TrainConfig,
+                     checkpoint_dir: str, log=None, combine_objf=None):
+    """--train-stage semantics: resume from the latest checkpoint, run in
+    ``checkpoint_every`` segments, save and log per-component parameter
+    progress (nnet3-show-progress) at each boundary, and optionally pick
+    the best checkpoint-tail combination (nnet3-combine) by
+    ``combine_objf(state)``.  With ``train_cfg.profile`` each segment
+    writes a `torch.profiler` trace under ``<parent of
+    checkpoint_dir>/profile/seg<start>-<end>``."""
+    done = latest_checkpoint(checkpoint_dir) or 0
+    if done:
+        trainer.state = load_checkpoint(trainer.state, checkpoint_dir, done)
+        trainer.steps_done = done  # logged steps stay global on resume
+    remaining = num_steps - done
+    prev_params = _host_params(trainer.state) if log else None
+    state = trainer.state
+    while remaining > 0:
+        run_for = min(train_cfg.checkpoint_every, remaining)
+        start = num_steps - remaining
+        trace_dir = os.path.join(
+            os.path.dirname(checkpoint_dir) or ".", "profile", f"seg{start}-{start + run_for}",
+        ) if train_cfg.profile else None
+        with profile(trace_dir, enabled=trace_dir is not None):
+            state = trainer.run(it, num_steps=run_for)
+        remaining -= run_for
+        save_checkpoint(state, checkpoint_dir, num_steps - remaining,
+                        keep_every=train_cfg.keep_checkpoint_every * train_cfg.checkpoint_every)
+        if log:
+            cur_params = _host_params(state)
+            log(num_steps - remaining, "progress", parameter_progress(prev_params, cur_params))
+            prev_params = cur_params
+    if combine_objf is not None:
+        last_objf = combine_objf(state)
+        state, best_objf = combine_checkpoints(state, checkpoint_dir, combine_objf)
+        if log:
+            log(num_steps, "combine",
+                {"objf_last": float(last_objf), "objf_combined": float(best_objf)})
+    return state
+
+
+def make_task_supersteps(tx, tasks, train_cfg: TrainConfig):
+    """Per-task superstep functions when steps_per_dispatch > 1, else
+    None.  ``tasks`` maps task name -> task_kwargs of the model call."""
+    if train_cfg.steps_per_dispatch <= 1:
+        return None
+    return {t: make_superstep(tx, task_kwargs=kw) for t, kw in tasks.items()}
+
+
+def auto_heldout(dataset: Dataset, num_heldout_utts: Optional[int]) -> int:
+    """Resolve the held-out budget: None = auto (~5%, at least 2, at most
+    1000, as get_egs_new.sh holds out 1000 utts of ~100k); an int
+    (including 0 = off) passes through."""
+    if num_heldout_utts is not None:
+        return num_heldout_utts
+    return min(1000, max(2, len(dataset) // 20))
+
+
+def heldout_split(dataset: Dataset, num_heldout_utts: int,
+                  min_per_spk: int = 2) -> Tuple[Dataset, Dataset]:
+    """Split off held-out diagnostic utterances (get_egs_xvec.sh:104-119):
+    only speakers keeping at least ``min_per_spk`` utterances contribute,
+    and augmented copies move with their clean source (utt2uniq)."""
+    groups: Dict[str, list] = {}
+    for u in dataset:
+        groups.setdefault(u.uniq_id or u.utt_id, []).append(u)
+    heldout: list = []
+    remaining_counts = {s: len(us) for s, us in dataset.spk2utt.items()}
+    for root in sorted(groups):
+        if len(heldout) >= num_heldout_utts:
+            break
+        members = groups[root]
+        spk = members[0].spk_id
+        if remaining_counts[spk] > min_per_spk + len(members) - 1:
+            heldout.extend(m.utt_id for m in members)
+            remaining_counts[spk] -= len(members)
+    held_set = set(heldout)
+    return (
+        dataset.filter(lambda u: u.utt_id not in held_set, f"{dataset.name}_train"),
+        dataset.filter(lambda u: u.utt_id in held_set, f"{dataset.name}_valid"),
+    )
+
+
+def train_xvector_model(
+    features: Mapping[str, np.ndarray],
+    dataset: Dataset,
+    model_cfg: Optional[XVectorConfig] = None,
+    train_cfg: TrainConfig = TrainConfig(),
+    num_steps: int = 500,
+    mesh=None,
+    log=None,
+    num_heldout_utts: Optional[int] = None,
+    checkpoint_dir: Optional[str] = None,
+    device: DeviceLike = "cuda",
+):
+    """Train a v2 x-vector on nosil features; returns (model, state,
+    label_map), the model in eval mode with calibrated batch-norm
+    statistics (``state.model`` is the same module).
+
+    ``num_heldout_utts`` (default auto, see `auto_heldout`) holds out
+    utterances scored each ``steps_per_eval`` steps (0 disables); with
+    ``checkpoint_dir``, checkpoints are written every
+    ``checkpoint_every`` steps, a run resumes from the newest, and the
+    final model is the best checkpoint-tail combination on the held-out
+    objective.  The sampler draws in the reference's order (the valid
+    sampler first, a probe batch, calibration batches after training), so
+    both packages train on the same batches.
+    """
+    if mesh is not None:
+        raise NotImplementedError("the device mesh is not ported yet")
+    if train_cfg.compute_dtype != "float32":
+        raise NotImplementedError(f"compute_dtype {train_cfg.compute_dtype!r}: only float32")
+    dev = resolve_device(device)
+    feat_dim = next(iter(features.values())).shape[1]
+    label_map = dataset.speaker_label_map()
+    if model_cfg is None:
+        model_cfg = XVectorConfig(feat_dim=feat_dim, num_speakers=len(label_map))
+    model = XVector(model_cfg)
+
+    train_ds, valid_batches, eval_steps = dataset, None, None
+    num_heldout_utts = auto_heldout(dataset, num_heldout_utts)
+    if num_heldout_utts > 0:
+        train_ds, valid_ds = heldout_split(dataset, num_heldout_utts)
+        valid_utts = [u for u in valid_ds.utt_ids if u in features]
+        if not valid_utts:
+            train_ds = dataset  # nothing could be held out
+        else:
+            # the global label map: the held-out subset may miss speakers
+            valid_sampler = ChunkSampler(
+                {u: features[u] for u in valid_utts},
+                dataset.subset(valid_utts),
+                train_cfg.chunks,
+                min(train_cfg.batch_size, max(len(valid_utts), 2)),
+                train_cfg.seed + 1,
+                label_map=label_map,
+            )
+            valid_batches = [valid_sampler.sample_batch(l) for l in valid_sampler.buckets[:2]]
+            eval_steps = {"xvec": make_eval_step()}
+
+    sampler = ChunkSampler(
+        {u: features[u] for u in train_ds.utt_ids if u in features},
+        dataset.subset(train_ds.utt_ids),
+        train_cfg.chunks,
+        train_cfg.batch_size,
+        train_cfg.seed,
+        block_size=train_cfg.steps_per_dispatch,
+        label_map=label_map,
+    )
+    tx, _ = build_optimizer(train_cfg.optimizer, num_steps)
+    # the reference traces its model on this batch; drawn here too so the
+    # sampler's RNG stays in step with it
+    sampler.sample_batch(sampler.buckets[0])
+    state = create_train_state(model, tx, train_cfg.seed, dev)
+    trainer = Trainer(
+        steps={"xvec": make_xvec_step(tx)}, state=state, log_every=50, logger=log,
+        valid_batches=valid_batches, eval_steps=eval_steps,
+        eval_every=train_cfg.steps_per_eval,
+        supersteps=make_task_supersteps(tx, {"xvec": {}}, train_cfg),
+        steps_per_dispatch=train_cfg.steps_per_dispatch,
+    )
+
+    it = batch_iterator(sampler, train_cfg)
+    try:
+        if checkpoint_dir:
+            combine_objf = None
+            if valid_batches and eval_steps:
+                ev = eval_steps["xvec"]
+
+                def combine_objf(s):
+                    return float(np.mean([float(ev(s, vb.feats, vb.labels)["objf"])
+                                          for vb in valid_batches]))
+
+            state = run_checkpointed(trainer, it, num_steps, train_cfg, checkpoint_dir,
+                                     log=log, combine_objf=combine_objf)
+        else:
+            state = trainer.run(it, num_steps=num_steps)
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+    calib = [sampler.sample_batch(l).feats for l in sampler.buckets[:3]]
+    state = finalize_batch_stats(state, calib)
+    return state.model, state, label_map
 
 
 def extract_and_score(

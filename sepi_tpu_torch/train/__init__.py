@@ -1,0 +1,31 @@
+from .checkpoint import combine_checkpoints, load_checkpoint, save_checkpoint
+from .optim import build_optimizer, dropout_schedule, lr_schedule, subtree_lr_factors
+from .trainer import (
+    Trainer,
+    TrainState,
+    create_train_state,
+    finalize_batch_stats,
+    make_eval_step,
+    make_superstep,
+    make_xvec_step,
+)
+
+xvec_train_step = make_xvec_step
+xvec_eval_step = make_eval_step
+
+__all__ = [
+    "lr_schedule",
+    "dropout_schedule",
+    "build_optimizer",
+    "subtree_lr_factors",
+    "TrainState",
+    "create_train_state",
+    "xvec_train_step",
+    "xvec_eval_step",
+    "make_superstep",
+    "Trainer",
+    "finalize_batch_stats",
+    "save_checkpoint",
+    "load_checkpoint",
+    "combine_checkpoints",
+]

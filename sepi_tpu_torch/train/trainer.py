@@ -1,0 +1,365 @@
+"""Training loop: the cross-entropy step, supersteps, and the outer loop.
+
+Port of `sepi_tpu/train/trainer.py` for the speaker-chunk (x-vector)
+task.  What it keeps of the reference:
+- the objective: per-example mean log-prob (``objf``), ``accuracy`` and
+  the global norm of the gradient (``grad_norm``), each step;
+- a superstep: K steps back to back on the device from one stacked
+  (K, B, L, D) batch, with the (K,) metric vectors returned; the same
+  update sequence as K single steps;
+- held-out diagnostics every ``eval_every`` steps, the divergence guard,
+  and global step numbers across segmented ``run()`` calls.
+
+A step leaves its metrics on the device; the host reads them only where
+it logs or evaluates, so the card is not stalled once a step.  Input
+batches are staged ahead of use from pinned host memory on a side stream.
+"""
+
+from __future__ import annotations
+
+import collections
+import copy
+import dataclasses
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.tdnn import batch_moments, lecun_normal_init
+from .optim import OptimizerChain, apply_updates, global_norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters and batch-norm statistics), the optimizer
+    chain's state and the number of steps taken."""
+
+    model: torch.nn.Module
+    opt_state: dict
+    step: int = 0
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    def clone(self) -> "TrainState":
+        return TrainState(copy.deepcopy(self.model), copy.deepcopy(self.opt_state), self.step)
+
+
+def init_weights(model: torch.nn.Module, seed: int) -> None:
+    """The initial weights of a training run (Flax's initialisation)."""
+    lecun_normal_init(model, seed)
+
+
+def create_train_state(model: torch.nn.Module, tx: OptimizerChain, seed: int,
+                       device: torch.device) -> TrainState:
+    """Initialise ``model`` from ``seed``, move it to ``device`` and make
+    the optimizer state.  (The reference also takes a sample batch to
+    trace the model; torch needs none.)"""
+    init_weights(model, seed)
+    state = TrainState(model.to(device), {}, 0)
+    state.opt_state = tx.init(state.params())
+    return state
+
+
+def _softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def _logits(out):
+    return out["logits"] if "logits" in out else out["am_logits"]
+
+
+def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
+    """The CE train step: ``step(state, feats, labels, weight)`` updates
+    ``state`` in place and returns {objf, accuracy, grad_norm} as device
+    scalars.  Labels are (B,) for speaker chunks or (B, L) for per-frame
+    targets; ``weight`` scales the loss (multitask weighting)."""
+    kw = dict(task_kwargs or {})
+
+    def step(state: TrainState, feats, labels, weight=1.0):
+        model = state.model
+        model.train()
+        params = state.params()
+        logits = _logits(model(feats, **kw))
+        xent = _softmax_xent(logits, labels)
+        loss = weight * xent.mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = dict(zip(params, grads))
+        with torch.no_grad():
+            metrics = {
+                "objf": -xent.mean(),
+                "accuracy": (logits.argmax(-1) == labels).float().mean(),
+                "grad_norm": global_norm(grads.values()),
+            }
+        apply_updates(params, tx.update(grads, state.opt_state, params))
+        state.step += 1
+        return metrics
+
+    return step
+
+
+def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
+    """K train steps back to back: ``sstep(state, feats (K, B, ...),
+    labels (K, B, ...), weights (K,))`` runs the CE step on each slice in
+    order and returns each metric stacked to (K,)."""
+    body = make_xvec_step(tx, task_kwargs)
+
+    def sstep(state: TrainState, feats, labels, weights):
+        out = [body(state, feats[k], labels[k], weights[k]) for k in range(feats.shape[0])]
+        return {m: torch.stack([o[m] for o in out]) for m in out[0]}
+
+    return sstep
+
+
+def make_eval_step(task_kwargs: Optional[Dict] = None):
+    """Held-out objective: ``ev(state, feats, labels)`` -> {objf,
+    accuracy} as device scalars, in eval mode (running statistics)."""
+    kw = dict(task_kwargs or {})
+
+    def ev(state: TrainState, feats, labels):
+        model = state.model
+        model.eval()
+        with torch.no_grad():
+            logits = _logits(model(_to(feats, model), **kw))
+            labels = _to(labels, model)
+            xent = _softmax_xent(logits, labels)
+            return {"objf": -xent.mean(),
+                    "accuracy": (logits.argmax(-1) == labels).float().mean()}
+
+    return ev
+
+
+def _to(x, model: torch.nn.Module) -> torch.Tensor:
+    dev = next(model.parameters()).device
+    return torch.as_tensor(x).to(dev)
+
+
+def finalize_batch_stats(state: TrainState, batches, model_kwargs=None) -> TrainState:
+    """Kaldi-style exact inference statistics for batch norm: a
+    train-mode forward per calibration batch records every batch norm's
+    (mean, biased var) without touching the running statistics; raw
+    moments E[x] and E[x^2] are pooled across the batches (so the spread
+    of the batch means counts) and written as the running statistics."""
+    model = state.model
+    kw = dict(model_kwargs or {})
+    sum_m: Dict[str, torch.Tensor] = {}
+    sum_x2: Dict[str, torch.Tensor] = {}
+    n = 0
+    model.train()
+    with torch.no_grad(), batch_moments(model) as moments:
+        for feats in batches:
+            model(_to(feats, model), **kw)
+            for name, recs in moments.items():
+                mean, var = recs.pop()
+                x2 = var + mean * mean
+                if name in sum_m:
+                    sum_m[name] = sum_m[name] + mean
+                    sum_x2[name] = sum_x2[name] + x2
+                else:
+                    sum_m[name], sum_x2[name] = mean, x2
+            n += 1
+    if n == 0:
+        raise ValueError("finalize_batch_stats: no calibration batches")
+    bns = dict(model.named_modules())
+    with torch.no_grad():
+        for name in sum_m:
+            mean = sum_m[name] / n
+            bns[name].running_mean.copy_(mean)
+            bns[name].running_var.copy_(torch.clamp(sum_x2[name] / n - mean * mean, min=0.0))
+    model.eval()
+    return state
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Outer loop: batches from an iterator, periodic diagnostics.
+
+    ``batch_iter`` yields ChunkBatch-like objects (``feats``, ``labels``,
+    ``task``) or (batch, weight) pairs; each step goes to ``steps[task]``.
+    Held-out objectives: with ``valid_batches`` and ``eval_steps``, every
+    batch is scored each ``eval_every`` steps and logged as
+    'valid:<task>'.  Divergence guard (`get_successful_models`,
+    `train/common.py:103-137`): a non-finite training objective at a log
+    boundary aborts with the last good record.
+    """
+
+    steps: Dict[str, Callable]
+    state: TrainState
+    log_every: int = 50
+    logger: Optional[Callable[[int, str, Dict[str, float]], None]] = None
+    history: list = dataclasses.field(default_factory=list)
+    valid_batches: Optional[list] = None
+    eval_steps: Optional[Dict[str, Callable]] = None
+    eval_every: int = 200
+    # with steps_per_dispatch=K and a task entry here, runs of K
+    # consecutive same-shape same-task batches run as one superstep;
+    # partial runs fall back to single steps
+    supersteps: Optional[Dict[str, Callable]] = None
+    steps_per_dispatch: int = 1
+    # units staged to the device ahead of use; 0 copies at dispatch time
+    device_prefetch: int = 1
+    # steps completed by earlier run() calls (set when resuming), so
+    # logged step numbers stay global
+    steps_done: int = 0
+
+    def _device(self) -> torch.device:
+        return next(self.state.model.parameters()).device
+
+    def _run_valid(self, n: int):
+        if not self.valid_batches or not self.eval_steps:
+            return
+        for vb in self.valid_batches:
+            ev = self.eval_steps.get(vb.task)
+            if ev is None:
+                continue
+            m = {k: float(v) for k, v in ev(self.state, vb.feats, vb.labels).items()}
+            self.history.append((n, f"valid:{vb.task}", m))
+            if self.logger:
+                self.logger(n, f"valid:{vb.task}", m)
+
+    def _record(self, n: int, task: str, metrics: Dict) -> None:
+        m = {k: float(v) for k, v in metrics.items()}
+        if not np.isfinite(m.get("objf", 0.0)):
+            raise RuntimeError(
+                f"training diverged: non-finite objective at step {n} "
+                f"(task {task}); last good metrics: "
+                f"{self.history[-1] if self.history else None}"
+            )
+        self.history.append((n, task, m))
+        if self.logger:
+            self.logger(n, task, m)
+
+    def _units(self, batch_iter: Iterable, num_steps: Optional[int]):
+        """Plan the batch stream into dispatch units:
+        ("super", task, feats (K,B,..), labels, weights (K,), K) or
+        ("single", task, feats, labels, weight, 1).  Exactly ``num_steps``
+        steps are planned and no further batch is pulled, so a sampler
+        loses nothing between segmented run() calls."""
+        K = self.steps_per_dispatch
+        use_super = K > 1 and self.supersteps
+        buf: list = []
+        buf_key = None
+        planned = 0
+
+        def emit_buf():
+            nonlocal buf
+            if not buf:
+                return
+            task = buf[0][0].task
+            if use_super and len(buf) == K and task in self.supersteps:
+                yield ("super", task,
+                       np.stack([b.feats for b, _ in buf]),
+                       np.stack([b.labels for b, _ in buf]),
+                       np.asarray([w for _, w in buf], np.float32), K)
+            else:
+                for b, w in buf:
+                    yield ("single", b.task, b.feats, b.labels, np.float32(w), 1)
+            buf = []
+
+        for item in batch_iter:
+            batch, weight = item if isinstance(item, tuple) else (item, 1.0)
+            if not use_super or batch.task not in self.supersteps:
+                for u in emit_buf():
+                    planned += u[5]
+                    yield u
+                planned += 1
+                yield ("single", batch.task, batch.feats, batch.labels, np.float32(weight), 1)
+            else:
+                key = (batch.task, batch.feats.shape)
+                if buf and key != buf_key:
+                    for u in emit_buf():
+                        planned += u[5]
+                        yield u
+                buf_key = key
+                buf.append((batch, weight))
+                full = len(buf) == K
+                at_end = num_steps is not None and planned + len(buf) >= num_steps
+                if full or at_end:
+                    for u in emit_buf():
+                        planned += u[5]
+                        yield u
+            if num_steps is not None and planned >= num_steps:
+                return
+        yield from emit_buf()
+
+    def _stage(self, units):
+        """Copy units to the device ``device_prefetch`` ahead of use.  On a
+        GPU the arrays go through pinned host memory and a side stream, so
+        the copy of the next unit overlaps the current unit's compute."""
+        dev = self._device()
+        depth = self.device_prefetch
+        if dev.type != "cuda":
+            for kind, task, f, l, w, k in units:
+                yield (kind, task, torch.from_numpy(np.asarray(f)).to(dev),
+                       torch.from_numpy(np.asarray(l)).to(dev),
+                       torch.as_tensor(np.asarray(w, np.float32), device=dev), k)
+            return
+        copy_stream = torch.cuda.Stream(device=dev)
+
+        def put(arr):
+            host = torch.from_numpy(np.ascontiguousarray(arr)).pin_memory()
+            with torch.cuda.stream(copy_stream):
+                return host.to(dev, non_blocking=True)
+
+        def ready(item):
+            kind, task, f, l, w, k, done = item
+            cur = torch.cuda.current_stream(dev)
+            cur.wait_event(done)
+            for t in (f, l, w):
+                t.record_stream(cur)
+            return kind, task, f, l, w, k
+
+        q: collections.deque = collections.deque()
+        for kind, task, f, l, w, k in units:
+            tensors = (put(f), put(l), put(np.asarray(w, np.float32)))
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+            q.append((kind, task, *tensors, k, done))
+            if len(q) > depth:
+                yield ready(q.popleft())
+        while q:
+            yield ready(q.popleft())
+
+    def run(self, batch_iter: Iterable, num_steps: Optional[int] = None) -> TrainState:
+        n = 0
+        base = self.steps_done
+
+        def crossed(prev: int, cur: int, every: int) -> bool:
+            return prev // every != cur // every
+
+        for kind, task, feats, labels, weight, k in self._stage(
+            self._units(batch_iter, num_steps)
+        ):
+            if kind == "super":
+                metrics = self.supersteps[task](self.state, feats, labels, weight)
+                prev, n = n, n + k
+                last = num_steps is not None and n >= num_steps
+                if crossed(prev, n, self.log_every) or last:
+                    # guard every step of the superstep, and record the
+                    # last value with the block mean
+                    vals = {m: v.cpu().numpy() for m, v in metrics.items()}
+                    objf = vals.get("objf")
+                    if objf is not None and not np.all(np.isfinite(objf)):
+                        bad = int(np.argmax(~np.isfinite(np.ravel(objf))))
+                        raise RuntimeError(
+                            f"training diverged: non-finite objective inside superstep "
+                            f"ending at step {base + n} (task {task}, step {bad + 1}/{k})"
+                        )
+                    rec = {m: float(np.ravel(v)[-1]) for m, v in vals.items()}
+                    rec.update({f"{m}_mean": float(v.mean()) for m, v in vals.items()})
+                    self._record(base + n, task, rec)
+            else:
+                metrics = self.steps[task](self.state, feats, labels, weight)
+                prev, n = n, n + 1
+                last = num_steps is not None and n >= num_steps
+                if n % self.log_every == 0 or last:
+                    self._record(base + n, task, metrics)
+            if crossed(prev, n, self.eval_every) or last:
+                self._run_valid(base + n)
+            if num_steps is not None and n >= num_steps:
+                break
+        self.steps_done = base + n
+        return self.state
+

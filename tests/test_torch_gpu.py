@@ -6,8 +6,11 @@ Run on a machine with an NVIDIA Hopper GPU, from the repository root:
 
 (``--noconftest`` because tests/conftest.py configures JAX, which the
 port's machine need not have.)  Each kernel is compared with its plain
-PyTorch version on the same device at small shapes.
+PyTorch version on the same device at small shapes; the training step,
+the Muon orthogonalisation and the input staging are held against the CPU.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -181,3 +184,140 @@ def test_viterbi_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         viterbi_cuda.viterbi_batch(torch.zeros((1, 2, big), device=cuda), tl[:1],
                                    torch.zeros((1, 3, big), device=cuda))
+
+
+# ------------------------------------------------------------- training
+
+
+def _tiny_train_state(device, opt, seed=3):
+    from sepi_tpu_torch.models import TdnnSpec, XVector, XVectorConfig, lecun_normal_init
+    from sepi_tpu_torch.train import TrainState, build_optimizer
+
+    specs = (TdnnSpec(64, (-2, -1, 0, 1, 2)), TdnnSpec(64, (-2, 0, 2)), TdnnSpec(64, (-3, 0, 3)),
+             TdnnSpec(64, (0,)), TdnnSpec(192, (0,)))
+    model = XVector(XVectorConfig(feat_dim=23, num_speakers=12, frame_specs=specs, embed_dim=64))
+    lecun_normal_init(model, seed)
+    model.to(device)
+    chain, _ = build_optimizer(opt, 100)
+    return chain, TrainState(model, chain.init(dict(model.named_parameters())))
+
+
+def _train_batches(count=3, b=16, t=120):
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(count):
+        labels = rng.integers(0, 12, size=b).astype(np.int32)
+        feats = rng.normal(size=(b, t, 23)) + np.eye(12, 23)[labels][:, None, :] * 1.5
+        out.append((feats.astype(np.float32), labels))
+    return out
+
+
+def _flat(model):
+    return {n: p.detach().cpu().double() for n, p in model.named_parameters()}
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """3 momentum-SGD steps from the same weights on the same batches:
+    ||p_card - p_cpu|| / ||p_cpu - p_init|| <= 1e-3 over all parameters
+    (the bias of a unit active on the whole batch ahead of its batch norm
+    has a zero gradient, so its own change is rounding noise); one
+    default (Muon) step equal to 1e-4 of the step outside entries whose
+    gradient is rounding noise (below 1e-4 of their parameter's largest)."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import make_xvec_step
+    from sepi_tpu_torch.train.trainer import _softmax_xent
+
+    torch.backends.cudnn.allow_tf32 = False
+    batches = _train_batches()
+    for opt, steps in ((OptimizerConfig(preconditioner="none"), 3), (OptimizerConfig(), 1)):
+        chain_d, sd = _tiny_train_state(cuda, opt)
+        chain_c, sc = _tiny_train_state("cpu", opt)
+        p0 = _flat(sc.model)
+        probe = _tiny_train_state("cpu", opt)[1].model.train()
+        params = dict(probe.named_parameters())
+        f, l = batches[0]
+        loss = _softmax_xent(probe(torch.from_numpy(f))["logits"], torch.from_numpy(l)).mean()
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        for f, l in batches[:steps]:
+            md = make_xvec_step(chain_d)(sd, torch.from_numpy(f).to(cuda),
+                                         torch.from_numpy(l).to(cuda), 1.0)
+            mc = make_xvec_step(chain_c)(sc, torch.from_numpy(f), torch.from_numpy(l), 1.0)
+            assert float(md["objf"]) == pytest.approx(float(mc["objf"]), rel=1e-4, abs=1e-5)
+        pd, pc = _flat(sd.model), _flat(sc.model)
+        if steps == 3:
+            err = sum(float(torch.sum((pd[k] - pc[k]) ** 2)) for k in pc) ** 0.5
+            change = sum(float(torch.sum((pc[k] - p0[k]) ** 2)) for k in pc) ** 0.5
+            assert err <= 1e-3 * change
+            continue
+        for k in pc:
+            stepsz = float((pc[k] - p0[k]).abs().max())
+            keep = grads[k].abs() > 1e-4 * grads[k].abs().max()
+            assert float((pd[k] - pc[k]).abs()[keep].max()) <= 1e-4 * stepsz, k
+
+
+def test_newton_schulz_on_the_card_matches_the_cpu(cuda):
+    """The Muon orthogonalisation of the full-size 512 x 5000 output layer
+    (Flax orientation, untransposed), fp32 with TF32 off: within 1e-4 of
+    the largest entry of the CPU result."""
+    from sepi_tpu_torch.train.optim import newton_schulz
+
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.normal(size=(5000, 512)).astype(np.float32) * 0.01)
+    ref = newton_schulz(w.T)
+    got = newton_schulz(w.to(cuda).T).cpu()
+    assert got.shape == (512, 5000)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def test_staging_and_prefetch_deliver_batches_in_order(cuda):
+    """PrefetchLoader over a sampler, then the Trainer's pinned-memory
+    staging two units ahead: every unit reaches the card, in order."""
+    from sepi_tpu_torch.data import ChunkBatch, PrefetchLoader
+    from sepi_tpu_torch.train import Trainer, TrainState
+
+    model = torch.nn.Linear(2, 2).to(cuda)
+    tr = Trainer(steps={}, state=TrainState(model, {}), device_prefetch=2)
+
+    def batches():
+        for i in range(12):
+            f = np.full((4, 8, 3), i, np.float32)
+            yield ChunkBatch(f, np.full((4,), i, np.int32), 8)
+
+    loader = PrefetchLoader(batches(), depth=3)
+    seen = []
+    for kind, task, f, l, w, k in tr._stage(tr._units(loader, 12)):
+        assert f.is_cuda and l.is_cuda and kind == "single"
+        seen.append((float(f.mean()), int(l[0])))
+    loader.close()
+    assert seen == [(float(i), i) for i in range(12)]
+
+
+def test_optimizer_chain_on_the_card_matches_the_cpu(cuda):
+    """The same gradients into the default chain (Muon + Adam, clip
+    active) on the card and on the CPU, at the full-size x-vector's
+    parameter shapes: the updates agree to 1e-5 of their largest entry
+    (the Muon matrix to 1e-4), and the global norm of a list of tensors
+    agrees to 1e-6."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import V2_XVECTOR, XVector
+    from sepi_tpu_torch.train.optim import build_optimizer, global_norm
+
+    model = XVector(dataclasses.replace(V2_XVECTOR, num_speakers=5000))
+    rng = np.random.default_rng(5)
+    cpu = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32) * 1e-3)
+             for n, p in cpu.items()}
+    dev = {n: p.to(cuda) for n, p in cpu.items()}
+    gdev = {n: g.to(cuda) for n, g in grads.items()}
+    n_cpu, n_dev = float(global_norm(grads.values())), float(global_norm(gdev.values()))
+    assert abs(n_dev - n_cpu) <= 1e-6 * n_cpu
+    chain, _ = build_optimizer(OptimizerConfig(), 100)
+    s_cpu, s_dev = chain.init(cpu), chain.init(dev)
+    for _ in range(2):
+        u_cpu = chain.update(grads, s_cpu, cpu)
+        u_dev = chain.update(gdev, s_dev, dev)
+        for n in u_cpu:
+            # the Muon matrix within the Newton-Schulz test's 1e-4, the rest 1e-5
+            limit = (1e-4 if u_cpu[n].ndim == 2 else 1e-5) * float(u_cpu[n].abs().max())
+            err = float((u_dev[n].cpu() - u_cpu[n]).abs().max())
+            assert err <= limit, (n, err, limit)
