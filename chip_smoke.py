@@ -679,7 +679,8 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
         f"CPU re-alignment of {len(sub)} utts agrees on {same}/{n_sub} frames "
         f"({100 * same / n_sub:.3f}%), {exact}/{len(sub)} utts frame for frame")
 
-    out = {"launches": launches, "mfcc_err": mfcc_err}
+    out = {"launches": launches, "mfcc_err": mfcc_err, "corpus": corpus, "nosil": feats.nosil,
+           "ali": voiced_ali, "num_senones": res.num_senones}
     if device != "cpu":
         emit, t_len, trans, skip = captured["viterbi"]
         err = _viterbi_check("s5 batch", emit, t_len, trans, skip)
@@ -967,7 +968,7 @@ def phase_train_agreement(env, nosil, dataset, device="cuda", model_cfg=None, ba
             metrics.append((float(md["objf"]), float(mc["objf"])))
         pd, pc = _flat(state_d.model), _flat(state_c.model)
         if name == "none":
-            err = _norm([pd[k] - pc[k] for k in pc]) / _norm([pc[k] - p0[k] for k in pc])
+            err = _traj(pd, pc, p0)
             worst = max((float(torch.linalg.norm(pd[k] - pc[k])
                                / torch.linalg.norm(pc[k] - p0[k])), k) for k in pc)
             ok = err <= TRAJ_TOL
@@ -1018,6 +1019,371 @@ def phase_train_agreement(env, nosil, dataset, device="cuda", model_cfg=None, ba
     return out
 
 
+CV_SPEAKERS, CV_SENONES = 5000, 4000  # 8a: phase 7a's speakers, the tri6a_4k width
+AM_B, AM_L = 256, 8  # TrainConfig().am_batch_size, frames_per_eg
+CV_AM_STEPS, CV_STEPS = 200, 300
+CV_UNSEEN = 50  # unseen speakers x 2 utterances scored beside the in-domain trials
+
+
+def _cvector(kind, num_speakers, num_senones=CV_SENONES):
+    """A full-width phonetic model, its optimizer's subtree factors and the
+    task kwargs of its two steps."""
+    from sepi_tpu_torch.models import cvector as cv
+
+    am = cv.AmConfig(num_senones=num_senones)
+    if kind == "am":
+        return cv.AmNet(am), None
+    if kind == "v3":
+        return cv.MultitaskCVector(cv.MultitaskConfig(num_speakers=num_speakers,
+                                                      num_senones=num_senones)), None
+    if kind == "v4":
+        return cv.AdaptedXVector(cv.AdaptedConfig(num_speakers=num_speakers, am=am)), {"am": 0.2}
+    return cv.CombinedCVector(cv.CombinedConfig(num_speakers=num_speakers,
+                                                num_senones=num_senones, am=am)), {"am": 0.1}
+
+
+def _cvector_state(kind, device, num_speakers, opt_cfg=None, seed=0, lr_factors=None,
+                   graft_from=None):
+    """A seeded (Flax-style) phonetic model on ``device``, the AM grafted
+    for v4/v5, and its optimizer chain."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import lecun_normal_init
+    from sepi_tpu_torch.train import TrainState, build_optimizer, graft_subtree
+
+    model, factors = _cvector(kind, num_speakers)
+    lecun_normal_init(model, seed)
+    if graft_from is not None:
+        graft_subtree(model, graft_from, "am")
+    model.to(device)
+    chain, _ = build_optimizer(opt_cfg or OptimizerConfig(), 1000,
+                               lr_factors=factors if lr_factors is None else lr_factors)
+    return chain, TrainState(model, chain.init(dict(model.named_parameters())))
+
+
+def _cv_steps(kind, chain):
+    from sepi_tpu_torch.train import make_am_step, make_xvec_step
+
+    if kind == "am":
+        return {"am": make_am_step(chain)}
+    if kind == "v4":
+        return {"xvec": make_xvec_step(chain)}
+    return {"am": make_am_step(chain, {"task": "am"}),
+            "xvec": make_xvec_step(chain, {"task": "xvec"})}
+
+
+def phase_cvector_steps(env, device="cuda"):
+    """8a: step times of the AM net and the v3/v4/v5 c-vectors at full
+    width (4000 senones, 5000 speakers), default OptimizerConfig (Muon)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    am_ctx, v3_ctx = (13, 7), (7, 7)
+    cases = [("am", "am", AM_L + sum(am_ctx)), ("v3", "am", AM_L + sum(v3_ctx)),
+             ("v3", "xvec", TRAIN_T), ("v4", "xvec", TRAIN_T), ("v5", "am", AM_L + sum(v3_ctx)),
+             ("v5", "xvec", TRAIN_T)]
+    torch.cuda.reset_peak_memory_stats()
+    out, lines = {}, []
+    for kind in ("am", "v3", "v4", "v5"):
+        chain, state = _cvector_state(kind, device, CV_SPEAKERS)
+        steps = _cv_steps(kind, chain)
+        for k, task, t in cases:
+            if k != kind:
+                continue
+            if task == "am":
+                b = AM_B
+                labels = torch.randint(0, CV_SENONES, (b, AM_L), generator=g, device=device,
+                                       dtype=torch.int32)
+            else:
+                b = TRAIN_B
+                labels = torch.randint(0, CV_SPEAKERS, (b,), generator=g, device=device,
+                                       dtype=torch.int32)
+            feats = torch.randn((b, t, 23), generator=g, device=device)
+            step = steps[task]
+            ms = time_ms(lambda: step(state, feats, labels, 1.0), iters=20, warmup=3)
+            m = step(state, feats, labels, 1.0)
+            if not all(bool(torch.isfinite(v)) for v in m.values()):
+                raise AssertionError(f"8a {kind} {task}: non-finite metrics {m}")
+            top, busy_ms, wall_ms = _profile_steps(lambda: step(state, feats, labels, 1.0),
+                                                   top=5)
+            frames = b * (AM_L if task == "am" else t)
+            rate = frames * 0.01 / (ms / 1e3)
+            out[f"{kind} {task}"] = {"ms": ms, "audio_s_per_s": rate,
+                                     "idle": 1 - busy_ms / wall_ms}
+            lines.append(f"{kind} {task} {b} x {t} x 23: {ms:.3f} ms, {rate:.1f} audio-s/s "
+                         f"({'label frames' if task == 'am' else 'chunk frames'}), device idle "
+                         f"{100 * (1 - busy_ms / wall_ms):.1f}% under the profiler")
+            log(f"  8a {kind} {task} torch.profiler over 3 steps: device busy {busy_ms:.3f} ms "
+                f"of {wall_ms:.3f} ms wall; top kernels (ms, calls): "
+                + "; ".join(f"{n} {tk:.3f} ({c})" for n, tk, c in top))
+        del state, chain
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 8a c-vector steps on {env['smi']}: AmConfig() ({CV_SENONES} senones), "
+        f"V3/V4/V5 defaults with {CV_SPEAKERS} speakers, OptimizerConfig() (muon; v4 am x0.2, "
+        f"v5 am x0.1), fp32, TF32 off, median of 20 (CUDA events): " + "; ".join(lines)
+        + f"; peak memory {peak_gb:.2f} GB")
+    return out
+
+
+def _eer_pair(model, kw, min_frames, feats, corpus, unseen, device):
+    """In-domain and unseen-speaker results of one model on the same trials."""
+    from sepi_tpu_torch.recipes import backend_eval, extract_and_score
+
+    embs = extract_and_score(model, None, feats, min_frames=min_frames, model_kwargs=kw,
+                             device=device)
+    enroll = {s: us[:1] for s, us in corpus.dataset.spk2utt.items()}
+    enroll_u = {s: us[:1] for s, us in unseen.dataset.spk2utt.items()}
+    ind = backend_eval(embs, corpus.dataset, corpus.trials, enroll)[0].as_dict()
+    uns = backend_eval(embs, corpus.dataset, unseen.trials, enroll_u)[0].as_dict()
+    return ind, uns
+
+
+def phase_cvector_path(env, s5, device="cuda", train_cfg=None, am_steps=CV_AM_STEPS,
+                       num_steps=CV_STEPS, unseen_speakers=CV_UNSEEN, num_senones=CV_SENONES):
+    """8b: phase 6's s5 labels -> train_am_model -> v3/v4/v5 trainers ->
+    extract_and_score -> backend_eval, each system beside the same model
+    with its initial weights."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.align import viterbi_cuda
+    from sepi_tpu_torch.config import TrainConfig
+    from sepi_tpu_torch.data import FrameSampler, make_phonetic_corpus
+    from sepi_tpu_torch.models import lecun_normal_init
+    from sepi_tpu_torch.models import cvector as cv
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.recipes import (auto_heldout, heldout_split, prepare_features_nosil,
+                                        train_adapted_model, train_am_model,
+                                        train_combined_model, train_multitask_model)
+    from sepi_tpu_torch.train import graft_subtree, make_eval_step
+    from sepi_tpu_torch.train.checkpoint import latest_checkpoint
+
+    train_cfg = train_cfg or TrainConfig()
+    corpus, nosil, ali, leaves = s5["corpus"], s5["nosil"], s5["ali"], s5["num_senones"]
+    ds = corpus.dataset
+    n_spk = len(ds.speakers)
+    root = os.path.join(ROOT, "build", "smoke_cvector")
+    shutil.rmtree(root, ignore_errors=True)
+    hist = {k: [] for k in ("am", "v3", "v4", "v5")}
+    secs = {}
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def logger(kind):
+        return lambda n, task, m: hist[kind].append((n, task, m))
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # the held-out utterances every trainer splits off: the AM never sees them either
+    _, valid_ds = heldout_split(ds, auto_heldout(ds, None))
+    held = set(valid_ds.utt_ids)
+    am_cfg = cv.AmConfig(num_senones=num_senones)
+    v3cfg = cv.MultitaskConfig(num_speakers=n_spk, num_senones=num_senones)
+    v4cfg = cv.AdaptedConfig(num_speakers=n_spk, am=am_cfg)
+    v5cfg = cv.CombinedConfig(num_speakers=n_spk, num_senones=num_senones, am=am_cfg)
+    unseen = make_phonetic_corpus(num_speakers=unseen_speakers, utts_per_speaker=2,
+                                  words_per_utt=(8, 16), seed=5, spk_prefix="unseen")
+    mfcc_cuda.mfcc_fused.launches = 0
+    viterbi_cuda.viterbi_batch.launches = 0
+    try:
+        am_model, am_state = timed("am", lambda: train_am_model(
+            {u: f for u, f in nosil.items() if u not in held},
+            {u: a for u, a in ali.items() if u not in held}, am_cfg, train_cfg, am_steps,
+            log=logger("am"), device=device))
+        ckpt = lambda k: os.path.join(root, k, "ckpt")  # noqa: E731
+        v3, _ = timed("v3", lambda: train_multitask_model(
+            nosil, ali, ds, v3cfg, train_cfg, num_steps, log=logger("v3"),
+            checkpoint_dir=ckpt("v3"), device=device))
+        v4, _ = timed("v4", lambda: train_adapted_model(
+            nosil, ds, am_model, am_state, v4cfg, train_cfg, num_steps, log=logger("v4"),
+            checkpoint_dir=ckpt("v4"), device=device))
+        v5, _ = timed("v5", lambda: train_combined_model(
+            nosil, ali, ds, am_model, am_state, v5cfg, train_cfg, num_steps, log=logger("v5"),
+            checkpoint_dir=ckpt("v5"), device=device))
+        latest = {k: latest_checkpoint(ckpt(k)) for k in ("v3", "v4", "v5")}
+        nosil_u = timed("unseen features", lambda: prepare_features_nosil(unseen.audio,
+                                                                          device=device))
+        feats = {**nosil, **nosil_u}
+        systems = {"v3": (v3, {"task": "xvec"}, sum(v3cfg.xvec_context) + 1),
+                   "v4": (v4, None, sum(v4cfg.context) + 1),
+                   "v5": (v5, {"task": "xvec"}, sum(v5cfg.xvec_context) + 1)}
+        t0 = time.perf_counter()
+        results = {k: _eer_pair(m, kw, mf, feats, corpus, unseen, device)
+                   for k, (m, kw, mf) in systems.items()}
+        secs["extraction + backend"] = time.perf_counter() - t0
+        launches = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
+                    "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the same models with their initial weights (the grafted AM included)
+    initial = {}
+    for k, (m, kw, mf) in systems.items():
+        m0 = type(m)(m.cfg)
+        lecun_normal_init(m0, train_cfg.seed)
+        if k != "v3":
+            graft_subtree(m0, am_model, "am")
+        initial[k] = _eer_pair(m0.to(device), kw, mf, feats, corpus, unseen, device)
+
+    # the AM on frames of the held-out utterances
+    fs = FrameSampler({u: nosil[u] for u in held}, {u: ali[u] for u in held}, AM_L, AM_B,
+                      seed=1, context=am_cfg.context)
+    hb = fs.sample_batch()
+    am_eval = {k: float(v) for k, v in make_eval_step()(am_state, hb.feats, hb.labels).items()}
+    chance = 1.0 / leaves
+
+    problems = []
+    values = [v for h in hist.values() for _, _, m in h for v in m.values()]
+    values += [v for r in results.values() for d in r for v in d.values()]
+    values += list(am_eval.values())
+    if not np.all(np.isfinite(values)):
+        problems.append("non-finite objective or metric")
+    if not am_eval["accuracy"] >= 3 * chance:
+        problems.append(f"AM held-out frame accuracy {am_eval['accuracy']:.4f} < 3 x chance "
+                        f"{chance:.4f}")
+    for k in systems:
+        if not results[k][0]["eer_pct"] <= initial[k][0]["eer_pct"]:
+            problems.append(f"{k}: in-domain EER {results[k][0]['eer_pct']}% above its initial "
+                            f"weights' {initial[k][0]['eer_pct']}%")
+    if any(v != num_steps for v in latest.values()):
+        problems.append(f"latest checkpoints {latest}, expected {num_steps}")
+    for k in ("v3", "v5"):
+        if not {"valid:am", "valid:xvec"} <= {t for _, t, _ in hist[k]}:
+            problems.append(f"{k}: no held-out record for each task")
+
+    def last(kind, task):
+        recs = [m for _, t, m in hist[kind] if t == task]
+        return recs[-1] if recs else {}
+
+    valid = "; ".join(
+        f"{k} " + ", ".join(f"{t} objf {last(k, 'valid:' + t).get('objf', float('nan')):.4f} "
+                            f"acc {last(k, 'valid:' + t).get('accuracy', float('nan')):.4f}"
+                            for t in (("am", "xvec") if k != "v4" else ("xvec",)))
+        for k in ("v3", "v4", "v5"))
+    combine = {k: (round(last(k, "combine").get("objf_last", float("nan")), 4),
+                   round(last(k, "combine").get("objf_combined", float("nan")), 4))
+               for k in ("v3", "v4", "v5")}
+    am_train = last("am", "am")
+    eers = "; ".join(
+        f"{k} in-domain EER {results[k][0]['eer_pct']:.3f}% minDCF08 "
+        f"{results[k][0]['min_dcf08']:.4f} (initial weights {initial[k][0]['eer_pct']:.3f}%), "
+        f"unseen EER {results[k][1]['eer_pct']:.3f}% (initial {initial[k][1]['eer_pct']:.3f}%)"
+        for k in systems)
+    lengths = sorted(f.shape[0] for f in nosil.values())
+    log(f"phase 8b c-vector path on {env['smi'] if env else device}: phase 6's {len(nosil)} "
+        f"utts ({n_spk} speakers, voiced frames {lengths[0]}..{lengths[-1]}, {leaves} s5 "
+        f"leaves) -> AmConfig(num_senones={num_senones}) {am_steps} steps, then V3/V4/V5 "
+        f"{num_steps} steps each of TrainConfig() with held-out batches ({len(held)} utts) "
+        f"and checkpoints (latest {latest}); launches {launches}; AM train objf "
+        f"{am_train.get('objf', float('nan')):.4f} acc {am_train.get('accuracy', float('nan')):.4f}, "
+        f"held-out frame accuracy {am_eval['accuracy']:.4f} objf {am_eval['objf']:.4f} "
+        f"(chance 1/{leaves} = {chance:.4f}, bound 3x = {3 * chance:.4f}); held-out: {valid}; "
+        f"combine objf (last, combined) {combine}; {eers} ({results['v3'][0]['num_target']} "
+        f"target / {results['v3'][0]['num_nontarget']} nontarget in-domain trials, "
+        f"{results['v3'][1]['num_target']} / {results['v3'][1]['num_nontarget']} unseen); "
+        f"wall s: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    if problems:
+        raise AssertionError("phase 8b: " + "; ".join(problems))
+    return {"launches": launches, "am_model": am_model, "secs": secs,
+            "eer": {k: results[k][0]["eer_pct"] for k in systems},
+            "eer_initial": {k: initial[k][0]["eer_pct"] for k in systems}}
+
+
+def _traj(pd, pc, p0) -> float:
+    return _norm([pd[k] - pc[k] for k in pc]) / _norm([pc[k] - p0[k] for k in pc])
+
+
+def _cv_run(kind, device, n_spk, opt, graft, seq, dtype=None):
+    """``seq`` of (task, batch) steps of a seeded phonetic model on
+    ``device`` (``dtype`` float64 for a host reference); returns the
+    parameters before and after, on the host in float64, and the objfs."""
+    import torch
+
+    chain, st = _cvector_state(kind, device, n_spk, opt, seed=3, graft_from=graft)
+    if dtype is not None:
+        st.model.to(dtype)
+        st.opt_state = chain.init(dict(st.model.named_parameters()))
+    p0, steps, objf = _flat(st.model), _cv_steps(kind, chain), []
+    for task, b in seq:
+        f = torch.from_numpy(b.feats).to(device)
+        m = steps[task](st, f if dtype is None else f.to(dtype),
+                        torch.from_numpy(b.labels).to(device), 1.0)
+        objf.append(round(float(m["objf"]), 6))
+    return p0, _flat(st.model), objf
+
+
+def phase_cvector_agreement(env, s5, am_model, device="cuda", xvec_batch=TRAIN_B, am_batch=AM_B,
+                            chunk_len=TRAIN_T):
+    """8c: the same weights and batches on the card and on the CPU
+    (momentum SGD, 3 interleaved steps of v3 and of v5, at the path's batch
+    sizes), and a frozen graft (v4, am x0, shrink off, Muon) over 10 steps
+    on the card.  On a disagreement a float64 CPU run says which side is off."""
+    import copy
+
+    import torch
+
+    from sepi_tpu_torch.config import ChunkConfig, OptimizerConfig
+    from sepi_tpu_torch.data import ChunkSampler, FrameSampler
+
+    nosil, ali, ds = s5["nosil"], s5["ali"], s5["corpus"].dataset
+    n_spk = len(ds.speakers)
+    xs = ChunkSampler(nosil, ds, ChunkConfig(), xvec_batch, seed=7)
+    fs = FrameSampler(nosil, ali, AM_L, am_batch, seed=7, context=(7, 7))
+    seq = [("am", fs.sample_batch()), ("xvec", xs.sample_batch(chunk_len)),
+           ("am", fs.sample_batch())]
+    am_cpu = copy.deepcopy(am_model).cpu()
+    sgd = OptimizerConfig(preconditioner="none")
+    out, msgs = {}, []
+    for kind in ("v3", "v5"):
+        v5 = kind == "v5"
+        _, pd, od = _cv_run(kind, device, n_spk, sgd, am_model if v5 else None, seq)
+        p0, pc, oc = _cv_run(kind, "cpu", n_spk, sgd, am_cpu if v5 else None, seq)
+        err = _traj(pd, pc, p0)
+        sq = {k: float(torch.sum((pd[k] - pc[k]) ** 2)) for k in pc}
+        top = sorted(sq, key=sq.get, reverse=True)[:3]
+        out[kind] = err
+        msg = (f"{kind} am/xvec/am {err:.3e} (largest shares of the difference: "
+               + ", ".join(f"{k} {100 * sq[k] / max(sum(sq.values()), 1e-300):.1f}%" for k in top)
+               + f"; objf card {od}, cpu {oc})")
+        if not err <= TRAJ_TOL:
+            _, p64, _ = _cv_run(kind, "cpu", n_spk, sgd, am_cpu if v5 else None, seq,
+                                torch.float64)
+            raise AssertionError(f"phase 8c: card and CPU apart: {msg}; against a float64 CPU "
+                                 f"run: card {_traj(pd, p64, p0):.3e}, CPU {_traj(pc, p64, p0):.3e}")
+        msgs.append(msg)
+    # a frozen graft stays frozen: am x0, shrink off, the default Muon chain
+    frozen = OptimizerConfig(proportional_shrink=0.0)
+    chain, st = _cvector_state("v4", device, n_spk, frozen, seed=3, lr_factors={"am": 0.0},
+                               graft_from=am_model)
+    step = _cv_steps("v4", chain)["xvec"]
+    x0 = {n: p.detach().clone() for n, p in st.model.xvec_branch.named_parameters()}
+    for _ in range(10):
+        b = xs.sample_batch()
+        step(st, torch.from_numpy(b.feats).to(device), torch.from_numpy(b.labels).to(device), 1.0)
+    src = am_model.state_dict()
+    same = all(torch.equal(p, src[n]) for n, p in st.model.am.named_parameters())
+    moved = not all(torch.equal(p, x0[n]) for n, p in st.model.xvec_branch.named_parameters())
+    if not (same and moved):
+        raise AssertionError(f"phase 8c frozen graft: AM unchanged {same}, x-vector branch "
+                             f"moved {moved}")
+    log(f"phase 8c c-vector card vs CPU on {env['smi'] if env else device}: full-width models "
+        f"({n_spk} speakers, {CV_SENONES} senones), seed 3, momentum SGD, batches of {am_batch} "
+        f"frame egs and {xvec_batch} chunks of {chunk_len}: ||p_card - p_cpu|| / "
+        f"||p_cpu - p_init|| "
+        + "; ".join(msgs) + f" (limit {TRAJ_TOL}); v4 with am x0 and shrink off: the grafted AM "
+        f"bit-identical to the pretrained one after 10 Muon steps on the card, the x-vector "
+        f"branch moved")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1047,6 +1413,21 @@ def main() -> int:
     t7.append(time.perf_counter())
     log(f"phase 7 wall on {env['smi']}: 7a {t7[1] - t7[0]:.1f} s, 7b {t7[2] - t7[1]:.1f} s, "
         f"7c {t7[3] - t7[2]:.1f} s")
+    t8 = [time.perf_counter()]
+    phase_cvector_steps(env)
+    t8.append(time.perf_counter())
+    cvec = phase_cvector_path(env, s5)
+    t8.append(time.perf_counter())
+    phase_cvector_agreement(env, s5, cvec["am_model"])
+    t8.append(time.perf_counter())
+    log(f"phase 8 wall on {env['smi']}: 8a {t8[1] - t8[0]:.1f} s, 8b {t8[2] - t8[1]:.1f} s, "
+        f"8c {t8[3] - t8[2]:.1f} s")
+    # the c-vector path: its front half is phase 6's run (features, s5,
+    # labels), its back half phase 8b (training, unseen-speaker features,
+    # extraction, scoring); each counted from 0 around its own run
+    cv_launches = {k: s5["launches"][k] + cvec["launches"][k] for k in s5["launches"]}
+    log(f"c-vector path launches: phase 6 {s5['launches']} + phase 8b {cvec['launches']}")
+    mfcc["launches_cvector_path"] = cv_launches["mfcc_fused"]
     mfcc["max_abs_err"] = max(mfcc["max_abs_err"], s5["mfcc_err"])
     timing = s5["viterbi_timing"]
     vit_rec = {
@@ -1054,6 +1435,7 @@ def main() -> int:
         "source": "sepi_tpu_torch/csrc/viterbi.cu",
         "replaces": VITERBI_REPLACES,
         "launches": s5["launches"]["viterbi_batch"],
+        "launches_cvector_path": cv_launches["viterbi_batch"],
         "max_abs_err": max(vit["max_abs_err"], s5["viterbi_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],

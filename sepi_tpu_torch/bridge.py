@@ -4,19 +4,22 @@
 aligner's GMM arrays and its senone tree into the port, so both packages
 can align with the same acoustic model.
 
-`xvector_state_dict_from_flax`: Flax x-vector variables -> a torch
-`state_dict` for `models.XVector`.  The input is the reference's
-``{'params', 'batch_stats'}`` tree with
-numpy (or array-like) leaves; nothing of JAX is imported.  Layouts:
-- ``frames/tdnn{i}/affine/kernel`` (k, in, out) -> ``Conv1d.weight``
+`state_dict_from_flax`: Flax variables of any TDNN-family model (the
+x-vector, the AM net, the c-vectors) -> a torch `state_dict` under the
+same module paths (`xvector_state_dict_from_flax` is the x-vector's
+name for it).  The input is the reference's ``{'params', 'batch_stats'}``
+tree with numpy (or array-like) leaves; nothing of JAX is imported.
+Layouts:
+- ``.../tdnn{i}/affine/kernel`` (k, in, out) -> ``Conv1d.weight``
   (out, in, k); ``bias`` as is.  ``segment/tdnn6``/``tdnn7`` follow the
   same rule (their kernels are (1, in, out)).
 - ``batchnorm/scale`` -> the BN weight; the BN bias is fixed at 0 (the
   reference's batchnorm has none); ``batch_stats .../mean``/``var`` ->
   ``running_mean``/``running_var``.
-- ``segment/output`` Dense kernel (in, out) -> ``Linear.weight`` (out, in).
+- a Dense kernel (in, out) (``segment/output``, ``output_am``, the AM's
+  ``output``) -> ``Linear.weight`` (out, in).
 
-`flax_variables_from_state_dict` is the inverse: a port x-vector's
+`flax_variables_from_state_dict` is the inverse: a port model's
 `state_dict` -> the reference's ``{'params', 'batch_stats'}`` tree of
 numpy arrays, so a model trained in the port loads into the reference.
 """
@@ -47,19 +50,32 @@ def _layer(prefix: str, params: Mapping, stats: Mapping) -> Dict[str, torch.Tens
     }
 
 
-def xvector_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    params, stats = variables["params"], variables["batch_stats"]
+def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Any TDNN-family tree (x-vector, AM net, c-vectors) -> a torch
+    `state_dict` under the same module paths: a node holding ``affine`` and
+    ``batchnorm`` is a `TdnnLayer`, a node holding a 2-D ``kernel`` a
+    `Linear`; every other node is walked into."""
     out: Dict[str, torch.Tensor] = {}
-    frames = params["frames"]
-    for name in sorted(frames, key=lambda s: int(s.removeprefix("tdnn"))):
-        out.update(_layer(f"frames.{name}", frames[name], stats["frames"][name]))
-    seg = params["segment"]
-    for name in ("tdnn6", "tdnn7"):
-        out.update(_layer(f"segment.{name}", seg[name], stats["segment"][name]))
-    if "output" in seg:
-        out["segment.output.weight"] = _t(np.asarray(seg["output"]["kernel"]).T)
-        out["segment.output.bias"] = _t(seg["output"]["bias"])
+
+    def walk(prefix: str, params: Mapping, stats: Mapping) -> None:
+        if "affine" in params and "batchnorm" in params:
+            out.update(_layer(prefix, params, stats))
+        elif "kernel" in params and np.ndim(params["kernel"]) == 2:
+            out[f"{prefix}.weight"] = _t(np.asarray(params["kernel"]).T)
+            out[f"{prefix}.bias"] = _t(params["bias"])
+        else:
+            for name, child in params.items():
+                if not isinstance(child, Mapping):
+                    raise ValueError(f"{prefix}.{name}: not a TDNN layer or a dense layer")
+                walk(f"{prefix}.{name}" if prefix else name, child, stats.get(name, {}))
+
+    walk("", variables["params"], variables.get("batch_stats", {}))
     return out
+
+
+def xvector_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax x-vector variables -> a `models.XVector` state_dict."""
+    return state_dict_from_flax(variables)
 
 
 def flax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:

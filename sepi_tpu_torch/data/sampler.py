@@ -1,11 +1,11 @@
-"""Training-chunk sampler: the egs pipeline without the disk round trip.
+"""Training samplers: the egs pipeline without the disk round trip.
 
-Port of `ChunkSampler` from `sepi_tpu/data/sampler.py`, in numpy.  It
-draws the same numbers in the same order from
-``np.random.default_rng(seed)`` as the reference, so both packages see
-the same batches.  Chunks are cut on the fly from an in-memory feature
-store and bucketed into a few static lengths, keeping the reference's
-per-archive-constant chunk length (`get_egs_xvec.sh:9-14`).
+Port of `sepi_tpu/data/sampler.py` (`ChunkSampler`, `FrameSampler`,
+`MultitaskInterleaver`), in numpy.  Each draws the same numbers in the
+same order from ``np.random.default_rng(seed)`` as the reference, so both
+packages see the same batches.  Chunks are cut on the fly from an
+in-memory feature store and bucketed into a few static lengths, keeping
+the reference's per-archive-constant chunk length (`get_egs_xvec.sh:9-14`).
 
 Speaker balance as `allocate_egs_new.py:252-268`: each pass over a
 bucket's rotation visits every eligible speaker once; a draw picks a
@@ -136,3 +136,129 @@ class ChunkSampler:
     def diagnostic_batches(self, num_lengths: int = 3) -> List[ChunkBatch]:
         """Held-out style diagnostics at geometric lengths."""
         return [self.sample_batch(l) for l in diagnostic_lengths(self.cfg, num_lengths)]
+
+
+@dataclasses.dataclass
+class FrameBatch:
+    """AM example batch: feats (B, L + left + right, D), labels (B, L) i32,
+    label_mask (B, L)."""
+
+    feats: np.ndarray
+    labels: np.ndarray
+    label_mask: np.ndarray
+    task: str = "am"
+
+
+class FrameSampler:
+    """Frame-level senone sampler (get_egs_am.sh semantics).
+
+    ``alignments[utt]`` is an int32 (T,) senone stream aligned with
+    ``features[utt]`` rows (the select-voiced-ali invariant).  Each example
+    is ``chunk_len`` label frames with the model's (left, right) context
+    around them, so VALID convolutions return exactly ``chunk_len``
+    logits.  Utterances are drawn in proportion to their frame count.
+    """
+
+    def __init__(
+        self,
+        features: Mapping[str, np.ndarray],
+        alignments: Mapping[str, np.ndarray],
+        chunk_len: int = 8,
+        batch_size: int = 256,
+        seed: int = 123,
+        context: Tuple[int, int] = (0, 0),
+    ):
+        self.chunk_len = chunk_len
+        self.batch_size = batch_size
+        if isinstance(context, int):
+            context = (context, context)
+        self.context = context
+        self.rng = np.random.default_rng(seed)
+        self._rows: List[Tuple[str, int]] = []
+        self._features = features
+        self._ali: Dict[str, np.ndarray] = {}
+        min_len = chunk_len + context[0] + context[1]
+        for utt, f in features.items():
+            if utt not in alignments:
+                continue
+            a = alignments[utt]
+            if len(a) != f.shape[0]:
+                raise ValueError(
+                    f"{utt}: alignment length {len(a)} != num frames {f.shape[0]}"
+                    " (select-voiced-ali invariant violated)"
+                )
+            if f.shape[0] >= min_len:
+                self._rows.append((utt, f.shape[0]))
+                self._ali[utt] = a
+        if not self._rows:
+            raise ValueError("no utterance long enough for AM examples")
+        self.feat_dim = next(iter(features.values())).shape[1]
+        tot = sum(n for _, n in self._rows)
+        self._probs = np.array([n / tot for _, n in self._rows])
+
+    def sample_batch(self) -> FrameBatch:
+        lc, rc = self.context
+        l = self.chunk_len + lc + rc
+        feats = np.zeros((self.batch_size, l, self.feat_dim), np.float32)
+        labels = np.zeros((self.batch_size, self.chunk_len), np.int32)
+        mask = np.ones((self.batch_size, self.chunk_len), bool)
+        idx = self.rng.choice(len(self._rows), size=self.batch_size, p=self._probs)
+        for b, i in enumerate(idx):
+            utt, n = self._rows[int(i)]
+            off = int(self.rng.integers(n - l + 1))
+            feats[b] = self._features[utt][off:off + l]
+            labels[b] = self._ali[utt][off + lc:off + lc + self.chunk_len]
+        return FrameBatch(feats, labels, mask)
+
+    def __iter__(self) -> Iterator[FrameBatch]:
+        while True:
+            yield self.sample_batch()
+
+
+class MultitaskInterleaver:
+    """nnet3-copy-cvector-egs: a stochastic two-stream interleave.
+
+    Draws the AM or the x-vector stream with probability proportional to
+    the *remaining* batch budget of each (`SelectExample`,
+    `nnet3-copy-cvector-egs.cc:294-301`), so both run out together.  With
+    ``block_size`` K a draw picks a stream for K batches (capped by its
+    budget), a same-task same-shape run a superstep can stack; the chunk
+    length of an x-vector run comes from ``xvec_sampler.rng``.  Yields
+    (batch, loss weight) pairs.
+    """
+
+    def __init__(
+        self,
+        am_sampler: FrameSampler,
+        xvec_sampler: ChunkSampler,
+        num_am_batches: int,
+        num_xvec_batches: int,
+        am_weight: float = 1.0,
+        xvec_weight: float = 1.0,
+        seed: int = 123,
+        block_size: int = 1,
+    ):
+        self.am_sampler = am_sampler
+        self.xvec_sampler = xvec_sampler
+        self.num_am = num_am_batches
+        self.num_xvec = num_xvec_batches
+        self.am_weight = am_weight
+        self.xvec_weight = xvec_weight
+        self.rng = np.random.default_rng(seed)
+        self.block_size = max(1, block_size)
+
+    def __iter__(self):
+        rem_am, rem_xvec = self.num_am, self.num_xvec
+        while rem_am > 0 or rem_xvec > 0:
+            p_am = rem_am / (rem_am + rem_xvec)
+            if self.rng.random() < p_am:
+                k = min(self.block_size, rem_am)
+                rem_am -= k
+                for _ in range(k):
+                    yield self.am_sampler.sample_batch(), self.am_weight
+            else:
+                k = min(self.block_size, rem_xvec)
+                rem_xvec -= k
+                chunk_len = int(self.xvec_sampler.rng.choice(self.xvec_sampler.buckets))
+                for _ in range(k):
+                    yield self.xvec_sampler.sample_batch(chunk_len), self.xvec_weight

@@ -65,6 +65,34 @@ class Stream:
     left: int
     right: int
 
+    def crop_to(self, left: int, right: int) -> "Stream":
+        """Center-crop so the stream's context becomes (left, right)."""
+        dl, dr = left - self.left, right - self.right
+        if dl < 0 or dr < 0:
+            raise ValueError(f"cannot expand context ({self.left},{self.right}) -> "
+                             f"({left},{right})")
+        t = self.x.shape[1]
+        return Stream(self.x[:, dl:t - dr, :], left, right)
+
+
+def pooled_mask(stream: Stream, frame_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The (B, T') validity of ``stream``'s frames from the (B, T) mask over
+    input frames: output frame t consumes input frames [t, t + left +
+    right], so it is valid iff input frame t + left + right is."""
+    if frame_mask is None:
+        return None
+    ctx = stream.left + stream.right
+    return frame_mask[:, ctx:ctx + stream.x.shape[1]]
+
+
+def append_streams(streams: Sequence[Stream]) -> Stream:
+    """xconfig `Append(a, b)` across branches: align by the largest
+    context, centre-crop, concatenate on channels."""
+    left = max(s.left for s in streams)
+    right = max(s.right for s in streams)
+    aligned = [s.crop_to(left, right) for s in streams]
+    return Stream(torch.cat([s.x for s in aligned], dim=-1), left, right)
+
 
 class BatchNorm(nn.Module):
     """Batch norm over (B, C, T) with Flax's conventions (`nn.BatchNorm`
@@ -179,16 +207,25 @@ class TdnnStack(nn.Module):
     def __init__(self, specs: Sequence[TdnnSpec], in_dim: int):
         super().__init__()
         self.names = []
+        self.context = stack_context(specs)
         for i, spec in enumerate(specs):
             name = f"tdnn{i + 1}"
             self.add_module(name, TdnnLayer(spec, in_dim))
             self.names.append(name)
             in_dim = spec.dim
+        self.out_dim = in_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for name in self.names:
             x = getattr(self, name)(x)
         return x
+
+    def stream(self, s: Stream) -> Stream:
+        """The stack on a Stream of (B, T, C): context accumulates; the
+        transposes are views, so chained stacks copy nothing."""
+        left, right = self.context
+        x = self(s.x.transpose(1, 2)).transpose(1, 2)
+        return Stream(x, s.left + left, s.right + right)
 
 
 class StatsPooling(nn.Module):

@@ -15,7 +15,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .tdnn import SegmentHead, StatsPooling, Stream, TdnnSpec, TdnnStack, stack_context
+from .tdnn import (SegmentHead, StatsPooling, Stream, TdnnSpec, TdnnStack, pooled_mask,
+                   stack_context)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +56,7 @@ class XVector(nn.Module):
 
     def trunk(self, feats: torch.Tensor) -> Stream:
         """Frame-level layers only: (B, T, D) -> Stream of (B, T', C)."""
-        left, right = self.cfg.context
-        x = self.frames(feats.transpose(1, 2))
-        return Stream(x.transpose(1, 2), left, right)
+        return self.frames.stream(Stream(feats, 0, 0))
 
     def head(self, pooled: torch.Tensor):
         """Post-pooling layers: (B, 2*C) -> embeddings / logits."""
@@ -66,11 +65,4 @@ class XVector(nn.Module):
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None):
         """(B, T, D) features, optional (B, T) mask over input frames."""
         stream = self.trunk(feats)
-        pooled_mask = None
-        if frame_mask is not None:
-            # trunk output frame t consumes input frames [t, t+left+right],
-            # so it is valid iff input frame t+left+right is valid
-            t_out = stream.x.shape[1]
-            ctx = stream.left + stream.right
-            pooled_mask = frame_mask[:, ctx:ctx + t_out]
-        return self.head(self.stats(stream.x, pooled_mask))
+        return self.head(self.stats(stream.x, pooled_mask(stream, frame_mask)))

@@ -11,6 +11,12 @@ from .pipeline import (
     run_checkpointed,
     train_xvector_model,
 )
+from .phonetic import (
+    train_adapted_model,
+    train_am_model,
+    train_combined_model,
+    train_multitask_model,
+)
 from .s5 import S5Result, run_s5, select_voiced_ali
 
 __all__ = [
@@ -27,5 +33,9 @@ __all__ = [
     "run_checkpointed",
     "run_s5",
     "select_voiced_ali",
+    "train_adapted_model",
+    "train_am_model",
+    "train_combined_model",
+    "train_multitask_model",
     "train_xvector_model",
 ]

@@ -300,6 +300,16 @@ def heldout_split(dataset: Dataset, num_heldout_utts: int,
     )
 
 
+def training_device(train_cfg: TrainConfig, mesh, device: DeviceLike) -> torch.device:
+    """The device of a training entry point, after refusing what is not
+    ported: the device mesh and a compute dtype other than float32."""
+    if mesh is not None:
+        raise NotImplementedError("the device mesh is not ported yet")
+    if train_cfg.compute_dtype != "float32":
+        raise NotImplementedError(f"compute_dtype {train_cfg.compute_dtype!r}: only float32")
+    return resolve_device(device)
+
+
 def train_xvector_model(
     features: Mapping[str, np.ndarray],
     dataset: Dataset,
@@ -325,11 +335,7 @@ def train_xvector_model(
     sampler first, a probe batch, calibration batches after training), so
     both packages train on the same batches.
     """
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet")
-    if train_cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype {train_cfg.compute_dtype!r}: only float32")
-    dev = resolve_device(device)
+    dev = training_device(train_cfg, mesh, device)
     feat_dim = next(iter(features.values())).shape[1]
     label_map = dataset.speaker_label_map()
     if model_cfg is None:

@@ -1,10 +1,12 @@
 from .checkpoint import combine_checkpoints, load_checkpoint, save_checkpoint
+from .graft import graft_subtree
 from .optim import build_optimizer, dropout_schedule, lr_schedule, subtree_lr_factors
 from .trainer import (
     Trainer,
     TrainState,
     create_train_state,
     finalize_batch_stats,
+    make_am_step,
     make_eval_step,
     make_superstep,
     make_xvec_step,
@@ -22,6 +24,7 @@ __all__ = [
     "create_train_state",
     "xvec_train_step",
     "xvec_eval_step",
+    "graft_subtree",
     "make_superstep",
     "Trainer",
     "finalize_batch_stats",

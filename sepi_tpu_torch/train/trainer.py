@@ -1,7 +1,8 @@
 """Training loop: the cross-entropy step, supersteps, and the outer loop.
 
-Port of `sepi_tpu/train/trainer.py` for the speaker-chunk (x-vector)
-task.  What it keeps of the reference:
+Port of `sepi_tpu/train/trainer.py`: speaker-chunk (x-vector), per-frame
+senone (AM) and interleaved multitask steps.  What it keeps of the
+reference:
 - the objective: per-example mean log-prob (``objf``), ``accuracy`` and
   the global norm of the gradient (``grad_norm``), each step;
 - a superstep: K steps back to back on the device from one stacked
@@ -75,8 +76,19 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
     """The CE train step: ``step(state, feats, labels, weight)`` updates
     ``state`` in place and returns {objf, accuracy, grad_norm} as device
     scalars.  Labels are (B,) for speaker chunks or (B, L) for per-frame
-    targets; ``weight`` scales the loss (multitask weighting)."""
+    targets; ``weight`` scales the loss (multitask weighting).
+
+    A parameter the task's forward does not reach (the other head of a
+    multitask model) gets a zero gradient, as `jax.grad` gives it, so the
+    chain still moves it (momentum, shrink).  The zero tensors are made
+    once per step function and shared by its steps."""
     kw = dict(task_kwargs or {})
+    zeros: Dict[str, torch.Tensor] = {}
+
+    def zero_like(name: str, p: torch.Tensor) -> torch.Tensor:
+        if name not in zeros:
+            zeros[name] = torch.zeros_like(p)
+        return zeros[name]
 
     def step(state: TrainState, feats, labels, weight=1.0):
         model = state.model
@@ -85,8 +97,9 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
         logits = _logits(model(feats, **kw))
         xent = _softmax_xent(logits, labels)
         loss = weight * xent.mean()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        grads = dict(zip(params, grads))
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {n: zero_like(n, p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
         with torch.no_grad():
             metrics = {
                 "objf": -xent.mean(),
@@ -98,6 +111,14 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
         return metrics
 
     return step
+
+
+def make_am_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
+    """The per-frame senone CE step: labels (B, L) aligned with the
+    logits' frames (the sampler cuts the model's context margin around
+    them), against ``logits`` or, in a multitask model, ``am_logits``.
+    The same step as `make_xvec_step`, as in the reference."""
+    return make_xvec_step(tx, task_kwargs)
 
 
 def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
@@ -115,7 +136,8 @@ def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
 
 def make_eval_step(task_kwargs: Optional[Dict] = None):
     """Held-out objective: ``ev(state, feats, labels)`` -> {objf,
-    accuracy} as device scalars, in eval mode (running statistics)."""
+    accuracy} as device scalars, in eval mode (running statistics).
+    Labels are (B,) speaker labels or (B, L) frame labels."""
     kw = dict(task_kwargs or {})
 
     def ev(state: TrainState, feats, labels):

@@ -321,3 +321,83 @@ def test_optimizer_chain_on_the_card_matches_the_cpu(cuda):
             limit = (1e-4 if u_cpu[n].ndim == 2 else 1e-5) * float(u_cpu[n].abs().max())
             err = float((u_dev[n].cpu() - u_cpu[n]).abs().max())
             assert err <= limit, (n, err, limit)
+
+
+# ------------------------------------------------------------- c-vectors
+
+
+def _cv_state(kind, device, opt, lr_factors=None, graft_from=None):
+    """A narrow v3 (MultitaskCVector), v4 (AdaptedXVector) or v5
+    (CombinedCVector) from a seeded Flax-style initialisation."""
+    from sepi_tpu_torch.models import TdnnSpec, lecun_normal_init
+    from sepi_tpu_torch.models import cvector as cv
+    from sepi_tpu_torch.train import TrainState, build_optimizer, graft_subtree
+
+    am = cv.AmConfig(num_senones=40, specs=(
+        TdnnSpec(64, (-2, -1, 0, 1, 2)), TdnnSpec(64, (-1, 0, 1)), TdnnSpec(64, (-1, 0, 1)),
+        TdnnSpec(64, (-3, 0, 3)), TdnnSpec(16, (-6, -3, 0))))
+    kw = dict(num_speakers=12, embed_dim=64, hidden_dim=64, pool_dim=192)
+    model = {"am": lambda: cv.AmNet(am),
+             "v3": lambda: cv.MultitaskCVector(cv.MultitaskConfig(num_senones=40, **kw)),
+             "v4": lambda: cv.AdaptedXVector(cv.AdaptedConfig(am=am, **kw)),
+             "v5": lambda: cv.CombinedCVector(cv.CombinedConfig(num_senones=40, am=am, **kw)),
+             }[kind]()
+    lecun_normal_init(model, 3)
+    if graft_from is not None:
+        graft_subtree(model, graft_from, "am")
+    model.to(device)
+    chain, _ = build_optimizer(opt, 100, lr_factors=lr_factors)
+    return chain, TrainState(model, chain.init(dict(model.named_parameters())))
+
+
+def _cv_batches():
+    """am, xvec, am: frame egs (16, 8 + 14, 23) with (16, 8) labels, then
+    speaker chunks (16, 120, 23)."""
+    rng = np.random.default_rng(1)
+    am = [(rng.normal(size=(16, 22, 23)).astype(np.float32),
+           rng.integers(0, 40, size=(16, 8)).astype(np.int32)) for _ in range(2)]
+    return [("am", am[0]), ("xvec", _train_batches(1)[0]), ("am", am[1])]
+
+
+@pytest.mark.parametrize("kind", ["v3", "v5"])
+def test_cvector_steps_on_the_card_match_the_cpu(cuda, kind):
+    """Interleaved am, xvec, am momentum-SGD steps from the same weights:
+    ||p_card - p_cpu|| / ||p_cpu - p_init|| <= 1e-3 over all parameters,
+    the ones a task does not reach included (v5 grafts one AM on both)."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import make_am_step, make_xvec_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    opt = OptimizerConfig(preconditioner="none")
+    graft = _cv_state("am", "cpu", opt)[1].model if kind == "v5" else None
+    factors = {"am": 0.1} if kind == "v5" else None
+    chain_d, sd = _cv_state(kind, cuda, opt, factors, graft)
+    chain_c, sc = _cv_state(kind, "cpu", opt, factors, graft)
+    p0 = _flat(sc.model)
+    for task, (f, l) in _cv_batches():
+        make = make_am_step if task == "am" else make_xvec_step
+        md = make(chain_d, {"task": task})(sd, torch.from_numpy(f).to(cuda),
+                                           torch.from_numpy(l).to(cuda), 1.0)
+        mc = make(chain_c, {"task": task})(sc, torch.from_numpy(f), torch.from_numpy(l), 1.0)
+        assert float(md["objf"]) == pytest.approx(float(mc["objf"]), rel=1e-4, abs=1e-5)
+    pd, pc = _flat(sd.model), _flat(sc.model)
+    err = sum(float(torch.sum((pd[k] - pc[k]) ** 2)) for k in pc) ** 0.5
+    change = sum(float(torch.sum((pc[k] - p0[k]) ** 2)) for k in pc) ** 0.5
+    assert err <= 1e-3 * change
+
+
+def test_frozen_graft_stays_frozen_on_the_card(cuda):
+    """v4 with the AM's factor 0 and shrink off (default Muon chain): the
+    grafted AM is bit-identical to its source after 10 steps."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import make_xvec_step
+
+    opt = OptimizerConfig(proportional_shrink=0.0)
+    source = _cv_state("am", "cpu", opt)[1].model
+    chain, st = _cv_state("v4", cuda, opt, {"am": 0.0}, source)
+    step = make_xvec_step(chain)
+    for f, l in _train_batches(10):
+        step(st, torch.from_numpy(f).to(cuda), torch.from_numpy(l).to(cuda), 1.0)
+    src = source.state_dict()
+    for n, p in st.model.am.named_parameters():
+        assert torch.equal(p.cpu(), src[n]), n
