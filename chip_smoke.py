@@ -54,6 +54,20 @@ non-zero:
         3 sampler batches, 3 momentum-SGD steps each side held by the
         trajectory measure, and one default (Muon) step held entry by
         entry wherever the two gradients agree to 1%, the Muon matrix in l2.
+  8. the phonetic c-vector systems: a. step times at full width; b. phase
+     6's labels -> AM pretraining -> v3/v4/v5 trainers -> extraction and
+     scoring beside the initial weights; c. the card against the CPU.
+  9. the recipe drivers on corpus-v2 audio (the gauntlet's CI_SCALE_V2
+     domain; unseen eval speakers, 1-3 enrollment utterances each):
+     run_v2 with augmentation and PLDA adaptation, run_v3 running the s5
+     stage, run_v4 and run_v5 loading it from their stage caches, all at
+     the drivers' default widths; per-driver and per-stage wall seconds,
+     the kernels' launch counts around the phase, the MFCC held against
+     its plain version on every batch the phase fed it, the Viterbi on
+     the largest batch of each (T, S, skip) the s5 stage gave it, the
+     reverberation's FFT on the card against the CPU's, every system's
+     unseen-speaker EER beside its initial weights' (v2's must be below),
+     and the Kaldi-format files read back equal to what the run held.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -85,6 +99,9 @@ TRAIN_STEPS = 300
 TRAJ_TOL = 1e-3  # ||p_card - p_cpu|| / ||p_cpu - p_init|| over all parameters after 3 steps
 UNSEEN_SPEAKERS = 200
 MUON_L2_TOL = 1e-3  # the Muon matrix after one step, card vs CPU (l2 over the step)
+# max |card - CPU| of a reverberated copy over the dry signal's RMS: each
+# float32 FFT of up to 2^17 points lies within 2e-6 of the float64 result
+REVERB_RTOL = 1e-5
 SR = 8000
 BENCH_B, BENCH_SECS = 16, 100.0
 
@@ -1384,6 +1401,287 @@ def phase_cvector_agreement(env, s5, am_model, device="cuda", xvec_batch=TRAIN_B
     return out
 
 
+P9_TRAIN, P9_EVAL, P9_ADAPT = (60, 16), (48, 8), (40, 4)  # speakers, utterances per speaker
+P9_V2_STEPS, P9_STEPS, P9_AM_STEPS = 400, 300, 200
+# the gauntlet's corpus-v2 domain (CI_SCALE_V2): no stationary speaker tilt
+P9_CORPUS = dict(words_per_utt=(3, 7), tilt_strength=0.06, f0_jitter=0.12,
+                 noise_snr_db=(8.0, 20.0), channel_strength=0.15, long_utt_frac=0.25,
+                 phone_seed=11)
+# v2's PLDA adaptation re-centres on the in-domain mean only: on this corpus
+# the covariance interpolation costs EER at every size (docs/BENCHMARKS.md)
+P9_ADAPT_BACKEND = dict(adapt_within_covar_scale=0.0, adapt_between_covar_scale=0.0)
+
+
+class _Tee:
+    """stdout that is also kept, to read the drivers' stage lines back."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, adapt=P9_ADAPT,
+                      v2_steps=P9_V2_STEPS, num_steps=P9_STEPS, am_steps=P9_AM_STEPS,
+                      train_cfg=None, configs=None, align_cfg=None):
+    """Phase 9: the recipe drivers run_v2 (augmentation and PLDA
+    adaptation) and run_v3/v4/v5 (the s5 stage inside run_v3, cached for
+    v4 and v5) on corpus-v2 audio, each system beside the same model at
+    its initial weights on unseen speakers; the drivers' Kaldi-format
+    files read back equal to what the run held.  ``configs`` maps a
+    driver to narrow model configs for a CPU rehearsal; None keeps each
+    driver's default widths."""
+    import contextlib
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.align import mono, viterbi_cuda
+    from sepi_tpu_torch.config import AlignConfig, BackendConfig, TrainConfig
+    from sepi_tpu_torch.data import augment, make_phonetic_corpus_v2
+    from sepi_tpu_torch.data.augment import synthetic_rir
+    from sepi_tpu_torch.metrics.det import compute_det, split_scores_by_trials
+    from sepi_tpu_torch.models import lecun_normal_init
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.ops.features import FeatureExtractor
+    from sepi_tpu_torch.recipes import drivers, pipeline
+    from sepi_tpu_torch.utils import kaldi_models, read_scp, read_vector
+
+    train_cfg = train_cfg or TrainConfig()
+    align_cfg = align_cfg or AlignConfig()
+    configs = configs or {}
+    root = os.path.join(ROOT, "build", "smoke_drivers")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    trn = make_phonetic_corpus_v2(num_speakers=train[0], utts_per_speaker=train[1], seed=100,
+                                  spk_prefix="trn", channel_seed=500, name="p9_train",
+                                  **P9_CORPUS)
+    evl = make_phonetic_corpus_v2(num_speakers=evaluation[0], utts_per_speaker=evaluation[1],
+                                  seed=101, spk_prefix="evl", channel_seed=600,
+                                  name="p9_eval", **P9_CORPUS)
+    adp = make_phonetic_corpus_v2(num_speakers=adapt[0], utts_per_speaker=adapt[1], seed=102,
+                                  spk_prefix="adp", channel_seed=600, name="p9_adapt",
+                                  **P9_CORPUS)
+    # 1-3 enrollment utterances per unseen speaker; the rest are tests
+    enroll = {s: us[:1 + i % 3] for i, (s, us) in enumerate(sorted(evl.dataset.spk2utt.items()))}
+    enrolled = {u for us in enroll.values() for u in us}
+    trials = [t for t in evl.trials if t.test not in enrolled]
+    rng = np.random.default_rng(9)
+    augments = drivers.AugmentOptions(
+        rirs=[synthetic_rir(seed=3), synthetic_rir(rt60=0.5, seed=4)],
+        noises={"noise": [(rng.standard_normal(16000) * 800).astype(np.float32)
+                          for _ in range(4)],
+                "music": [(rng.standard_normal(24000) * 600).astype(np.float32)
+                          for _ in range(4)],
+                "babble": [(rng.standard_normal(12000) * 1500).astype(np.float32)
+                           for _ in range(8)]},
+        subset=len(trn.dataset), seed=1)
+    corpus_secs = time.perf_counter() - t0
+
+    def wd(name):
+        return os.path.join(root, name)
+
+    common = dict(train_cfg=train_cfg, device=device)
+    phonetic = dict(common, transcripts=trn.transcripts, lexicon=trn.lexicon,
+                    align_cfg=align_cfg, num_steps=num_steps)
+    runs = {
+        "v2": lambda: drivers.run_v2(
+            trn.dataset, trn.audio, evl.dataset, evl.audio, trials, enroll, wd("v2"),
+            num_steps=v2_steps, augments=augments, adapt_dataset=adp.dataset,
+            adapt_audio=adp.audio, backend_cfg=BackendConfig(**P9_ADAPT_BACKEND),
+            **configs.get("v2", {}), **common),
+        "v3": lambda: drivers.run_v3(trn.dataset, trn.audio, evl.audio, trials, enroll,
+                                     wd("v3"), **configs.get("v3", {}), **phonetic),
+        "v4": lambda: drivers.run_v4(trn.dataset, trn.audio, evl.audio, trials, enroll,
+                                     wd("v4"), am_steps=am_steps, **configs.get("v4", {}),
+                                     **phonetic),
+        "v5": lambda: drivers.run_v5(trn.dataset, trn.audio, evl.audio, trials, enroll,
+                                     wd("v5"), am_steps=am_steps, **configs.get("v5", {}),
+                                     **phonetic),
+    }
+
+    # what the drivers hand to extraction and to the backend, every MFCC
+    # batch, and the largest Viterbi batch of each (T, S, skip)
+    calls = {}
+    captured = {"mfcc": [], "viterbi": {}}
+    orig_x, orig_b = pipeline.extract_and_score, pipeline.backend_eval
+    orig_fe_mfcc, orig_viterbi = FeatureExtractor.mfcc, mono.viterbi_batch
+
+    def cap_x(model, state, features, extract_cfg, min_frames, model_kwargs=None, mesh=None,
+              device="cuda"):
+        out = orig_x(model, state, features, extract_cfg, min_frames, model_kwargs, mesh, device)
+        calls[current].setdefault("extract", []).append(
+            (model, features, extract_cfg, min_frames, model_kwargs, out))
+        return out
+
+    def cap_b(*args, **kw):
+        out = orig_b(*args, **kw)
+        calls[current]["backend"] = (args, kw, out)
+        return out
+
+    def cap_mfcc(fe, samples, lengths=None, max_frames=None, utt_seeds=None):
+        feats_, mask_ = orig_fe_mfcc(fe, samples, lengths, max_frames, utt_seeds)
+        captured["mfcc"].append((fe, samples, lengths, max_frames, utt_seeds,
+                                 feats_.clone(), mask_.clone()))
+        return feats_, mask_
+
+    def cap_viterbi(emit, t_len, trans, skip=4):
+        key = (emit.shape[1], emit.shape[2], skip)
+        held = captured["viterbi"].get(key)
+        if held is None or emit.shape[0] > held[0].shape[0]:
+            captured["viterbi"][key] = (emit.clone(), t_len.clone(), trans.clone(), skip)
+        return orig_viterbi(emit, t_len, trans, skip)
+
+    results, wall, tee = {}, {}, _Tee(sys.stdout)
+    pipeline.extract_and_score, pipeline.backend_eval = cap_x, cap_b
+    FeatureExtractor.mfcc, mono.viterbi_batch = cap_mfcc, cap_viterbi
+    try:
+        mfcc_cuda.mfcc_fused.launches = 0
+        viterbi_cuda.viterbi_batch.launches = 0
+        with contextlib.redirect_stdout(tee):
+            for current in ("v2", "v3", "v4", "v5"):
+                calls[current] = {}
+                if current in ("v4", "v5"):  # one s5 run: v3's stage files, content-keyed
+                    os.makedirs(wd(current))
+                    for f in glob.glob(wd("v3") + "/s5_feats_ali-*") + glob.glob(
+                            wd("v3") + "/feats_*"):
+                        shutil.copy(f, wd(current))
+                tc = time.perf_counter()
+                results[current] = runs[current]()
+                wall[current] = time.perf_counter() - tc
+        launches = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
+                    "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
+    finally:
+        pipeline.extract_and_score, pipeline.backend_eval = orig_x, orig_b
+        FeatureExtractor.mfcc, mono.viterbi_batch = orig_fe_mfcc, orig_viterbi
+    out_text = "".join(tee.lines)
+
+    problems = []
+    if device != "cpu" and min(launches.values()) <= 0:
+        problems.append(f"the driver path did not launch every kernel: {launches}")
+    if out_text.count("[s5_feats_ali] running") != 1 or out_text.count(
+            "[s5_feats_ali] cached") != 2:
+        problems.append("the s5 stage did not run once in v3 and load from its cache in v4/v5")
+
+    # the MFCC kernel on every corpus-v2 batch the path gave it, against its plain version
+    mfcc_err = 0.0
+    kernel_wrapper = mfcc_cuda.mfcc_fused
+    mfcc_cuda.mfcc_fused = mfcc_cuda.mfcc_fused_reference
+    try:
+        for fe, x, lens, t_max, seeds, out_k, m_k in captured["mfcc"]:
+            out_p, m_p = orig_fe_mfcc(fe, x, lens, t_max, seeds)
+            err = float((out_k - out_p).abs().max())
+            if not (torch.equal(m_k, m_p) and bool(torch.isfinite(out_k).all())
+                    and err <= TOL):
+                problems.append(f"mfcc on a corpus-v2 batch {tuple(x.shape)}: max abs err "
+                                f"{err}, masks equal {torch.equal(m_k, m_p)}")
+            mfcc_err = max(mfcc_err, err)
+    finally:
+        mfcc_cuda.mfcc_fused = kernel_wrapper
+    mfcc_shapes = sorted({tuple(c[1].shape) for c in captured["mfcc"]})
+    n_mfcc = len(captured["mfcc"])
+    captured["mfcc"].clear()
+
+    # the Viterbi kernel on the largest batch of each (T, S, skip) of the s5
+    # stage: every warp-kernel layout (K) and skip the path ran
+    viterbi_err, viterbi_shapes = 0.0, sorted(captured["viterbi"])
+    if device != "cpu":
+        for (t, s, skip), args in sorted(captured["viterbi"].items()):
+            viterbi_err = max(viterbi_err, _viterbi_check(
+                f"driver-path batch T={t} S={s} skip {skip}", *args))
+
+    # the reverberation's float32 FFT on the device against the CPU's
+    dry = next(iter(trn.audio.values()))
+    reverb_err = 0.0
+    for rir in augments.rirs:
+        wet_d = augment.reverberate(dry, rir, device=device)
+        wet_c = augment.reverberate(dry, rir, device="cpu")
+        reverb_err = max(reverb_err, float(np.abs(wet_d - wet_c).max() / np.sqrt(
+            np.mean(np.square(dry, dtype=np.float64)))))
+    if not reverb_err <= REVERB_RTOL:
+        problems.append(f"reverberate on {device} vs the CPU: {reverb_err} of the dry RMS")
+
+    # each system at its initial weights: the driver's extraction and backend calls again
+    initial, files = {}, {}
+    for k, c in calls.items():
+        model = c["extract"][0][0]
+        m0 = type(model)(model.cfg)
+        lecun_normal_init(m0, train_cfg.seed)
+        m0 = m0.to(device).eval()
+        embs0 = [orig_x(m0, None, f, ec, mf, kw, device=device)
+                 for _, f, ec, mf, kw, _ in c["extract"]]
+        args, kw, _ = c["backend"]
+        if len(embs0) > 1:
+            kw = dict(kw, adapt_vectors=np.stack(list(embs0[1].values())))
+        initial[k] = orig_b(embs0[0], *args[1:], **kw)[0]
+
+        # the files the driver wrote, read back against what it held
+        embs, art = args[0], c["backend"][2][1]
+        w = wd(k)
+        table = dict(read_scp(os.path.join(w, "xvector.scp")))
+        exact = set(table) == set(embs) and all(
+            np.array_equal(read_vector(*table[u]), embs[u]) for u in embs)
+        plda = kaldi_models.read_plda(os.path.join(w, "backend", "plda"))
+        exact &= all(np.array_equal(getattr(plda, f), getattr(art["plda"], f))
+                     for f in ("mean", "transform", "psi"))
+        exact &= np.array_equal(kaldi_models.read_kaldi_vector_file(
+            os.path.join(w, "backend", "mean.vec")), art["mean"])
+        exact &= np.array_equal(kaldi_models.read_kaldi_matrix_file(
+            os.path.join(w, "backend", "transform.mat")), art["lda"].projection)
+        pairs = [(t.model, t.test, t.target) for t in trials if (t.model, t.test) in art["scores"]]
+        curve = compute_det(*split_scores_by_trials(art["scores"], pairs))
+        det = np.loadtxt(os.path.join(w, "det_pooled.txt"))
+        exact &= det.shape == (min(len(curve.p_fa), 2000), 4) and os.path.getsize(
+            os.path.join(w, "det_pooled.svg")) > 0
+        n_utts = len(embs)
+        if not exact:
+            problems.append(f"{k}: the written files do not read back equal to the run's")
+        files[k] = n_utts
+
+    res = {k: r.pooled for k, r in results.items()}
+    values = [v for r in list(res.values()) + list(initial.values()) for v in r.as_dict().values()]
+    if not np.all(np.isfinite(values)):
+        problems.append("non-finite result")
+    if not res["v2"].eer < initial["v2"].eer:
+        problems.append(f"v2: unseen-speaker EER {100 * res['v2'].eer:.3f}% not below its "
+                        f"initial weights' {100 * initial['v2'].eer:.3f}%")
+    systems = "; ".join(
+        f"{k} EER {100 * res[k].eer:.3f}% minDCF08 {res[k].min_dcf08:.4f} (initial weights "
+        f"{100 * initial[k].eer:.3f}%, {initial[k].min_dcf08:.4f}) in {wall[k]:.2f} s ("
+        + ", ".join(f"{s} {v:.2f}" for s, v in results[k].seconds.items()) + f"); {files[k]} "
+        f"embeddings" for k in res)
+    log(f"phase 9 driver path on {env['smi'] if env else device}: corpus v2 (gauntlet "
+        f"CI_SCALE_V2 domain) train {train[0]} speakers x {train[1]} "
+        f"({len(trn.audio)} utts), unseen eval {evaluation[0]} x {evaluation[1]}, adapt "
+        f"{adapt[0]} x {adapt[1]}, built in {corpus_secs:.2f} s; {res['v2'].num_target} target "
+        f"/ {res['v2'].num_nontarget} nontarget unseen-speaker trials (1-3 enrollment utts); "
+        f"v2 {v2_steps} steps with {augments.subset} augmented copies and PLDA adaptation "
+        f"({P9_ADAPT_BACKEND}), "
+        f"v3/v4/v5 {num_steps} steps (AM {am_steps}), "
+        f"{'narrow widths' if configs else 'default widths'} and {train_cfg}, s5 ({align_cfg}) "
+        f"run once in v3 and loaded from its stage cache by v4/v5; {systems}; launches {launches}; "
+        f"mfcc on the phase's {n_mfcc} batches {mfcc_shapes} max abs err {mfcc_err:.3e} <= {TOL}; "
+        f"viterbi on the largest batch of each (T, S, skip) {viterbi_shapes}: backpointers "
+        f"equal, live delta max abs err {viterbi_err:.3e} <= {VITERBI_ATOL}; reverberate on "
+        f"{device} vs the CPU {reverb_err:.3e} of the dry RMS <= {REVERB_RTOL}; "
+        f"xvector.scp, backend/{{mean.vec,transform.mat,plda}} and det_pooled.{{txt,svg}} "
+        f"read back equal (initial weights: each model's initialisation from the trainer's "
+        f"seed, no AM graft); wall s: " + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 9: " + "; ".join(problems))
+    return {"launches": launches, "mfcc_err": mfcc_err, "viterbi_err": viterbi_err,
+            "viterbi_shapes": viterbi_shapes, "eer": {k: r.eer for k, r in res.items()},
+            "eer_initial": {k: r.eer for k, r in initial.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -1422,13 +1720,17 @@ def main() -> int:
     t8.append(time.perf_counter())
     log(f"phase 8 wall on {env['smi']}: 8a {t8[1] - t8[0]:.1f} s, 8b {t8[2] - t8[1]:.1f} s, "
         f"8c {t8[3] - t8[2]:.1f} s")
+    t9 = time.perf_counter()
+    drv = phase_driver_path(env)
+    log(f"phase 9 wall on {env['smi']}: {time.perf_counter() - t9:.1f} s")
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
     cv_launches = {k: s5["launches"][k] + cvec["launches"][k] for k in s5["launches"]}
     log(f"c-vector path launches: phase 6 {s5['launches']} + phase 8b {cvec['launches']}")
     mfcc["launches_cvector_path"] = cv_launches["mfcc_fused"]
-    mfcc["max_abs_err"] = max(mfcc["max_abs_err"], s5["mfcc_err"])
+    mfcc["launches_driver_path"] = drv["launches"]["mfcc_fused"]
+    mfcc["max_abs_err"] = max(mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"])
     timing = s5["viterbi_timing"]
     vit_rec = {
         "name": "viterbi_batch", "route": "cuda",
@@ -1436,7 +1738,9 @@ def main() -> int:
         "replaces": VITERBI_REPLACES,
         "launches": s5["launches"]["viterbi_batch"],
         "launches_cvector_path": cv_launches["viterbi_batch"],
-        "max_abs_err": max(vit["max_abs_err"], s5["viterbi_err"]),
+        "launches_driver_path": drv["launches"]["viterbi_batch"],
+        "shapes_driver_path": drv["viterbi_shapes"],
+        "max_abs_err": max(vit["max_abs_err"], s5["viterbi_err"], drv["viterbi_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,

@@ -1,23 +1,36 @@
-from .featstore import PrefetchLoader
-from .manifest import Dataset, Trial, Utterance
+from .audio import AudioStore, ChainAudio, LazyAudio, extract_segments, read_audio, read_wav, write_wav
+from .featstore import FeatStore, PrefetchLoader
+from .manifest import Dataset, Trial, Utterance, load_trials, save_trials
 from .sampler import (ChunkBatch, ChunkSampler, FrameBatch, FrameSampler, MultitaskInterleaver,
                       bucket_lengths, diagnostic_lengths)
-from .synthetic import PhoneticCorpus, SyntheticCorpus, make_phonetic_corpus, make_synthetic_corpus
+from .synthetic import (PhoneticCorpus, SyntheticCorpus, make_phonetic_corpus,
+                        make_phonetic_corpus_v2, make_synthetic_corpus)
 
 __all__ = [
+    "AudioStore",
+    "ChainAudio",
     "ChunkBatch",
     "ChunkSampler",
     "Dataset",
+    "FeatStore",
     "FrameBatch",
     "FrameSampler",
+    "LazyAudio",
     "MultitaskInterleaver",
     "PrefetchLoader",
     "bucket_lengths",
     "diagnostic_lengths",
+    "extract_segments",
+    "load_trials",
     "PhoneticCorpus",
+    "read_audio",
+    "read_wav",
+    "save_trials",
     "SyntheticCorpus",
     "Trial",
     "Utterance",
     "make_phonetic_corpus",
+    "make_phonetic_corpus_v2",
     "make_synthetic_corpus",
+    "write_wav",
 ]

@@ -15,10 +15,10 @@ single vectorized ROC sweep in NumPy.  Definitions match the reference:
 - ``get_eer.m:1-15`` / Kaldi ``compute-eer``: EER is the rate where
   P_miss crosses P_fa.
 
-A copy of `sepi_tpu/metrics/det.py` without the DET-plot export.
-This is deliberately plain NumPy: trial counts are O(1e5-1e7),
-the sweep is a sort + cumsum, and it runs host-side at the end of an
-experiment, so a device path would pay dispatch for nothing.
+A copy of `sepi_tpu/metrics/det.py`.  This is deliberately plain NumPy:
+trial counts are O(1e5-1e7), the sweep is a sort + cumsum, and it runs
+host-side at the end of an experiment, so a device path would pay
+dispatch for nothing.
 """
 
 from __future__ import annotations
@@ -124,6 +124,82 @@ def compute_det(
         num_target=int(tgt.size),
         num_nontarget=int(non.size),
     )
+
+
+def ppndf(p: np.ndarray) -> np.ndarray:
+    """Probit transform (inverse standard-normal CDF) — `ppndf.m`.
+
+    DET curves are straight lines for Gaussian score distributions in
+    these coordinates; probabilities are clipped away from {0, 1} like
+    DETware does so axis limits stay finite."""
+    from scipy.special import ndtri
+
+    eps = 1e-6
+    return ndtri(np.clip(np.asarray(p, np.float64), eps, 1.0 - eps))
+
+
+def export_det_curve(curve: DetCurve, path: str, max_points: int = 2000) -> None:
+    """Write the DET curve in probit coordinates — the `Plot_DET.m`
+    artifact equivalent: a text table `p_fa p_miss ppndf(p_fa)
+    ppndf(p_miss)` (plottable by anything) and, with a .svg suffix, a
+    standalone SVG rendering with the DETware axis ticks."""
+    pm, pf = curve.p_miss, curve.p_fa
+    if len(pm) > max_points:
+        idx = np.unique(np.linspace(0, len(pm) - 1, max_points).astype(int))
+        pm, pf = pm[idx], pf[idx]
+    xm, xf = ppndf(pm), ppndf(pf)
+    if path.endswith(".svg"):
+        _write_det_svg(path, xf, xm)
+        return
+    with open(path, "w") as f:
+        f.write("# p_fa p_miss ppndf(p_fa) ppndf(p_miss)\n")
+        for a, b, c, d in zip(pf, pm, xf, xm):
+            f.write(f"{a:.6g} {b:.6g} {c:.5f} {d:.5f}\n")
+
+
+# DETware Set_DET_limits.m tick probabilities
+_DET_TICKS = [0.001, 0.002, 0.005, 0.01, 0.02, 0.05, 0.1, 0.2, 0.4]
+
+
+def _write_det_svg(path: str, xf: np.ndarray, xm: np.ndarray) -> None:
+    lo, hi = ppndf(np.array([0.0005]))[0], ppndf(np.array([0.5]))[0]
+    w = h = 480.0
+
+    def sx(v):
+        return (np.clip(v, lo, hi) - lo) / (hi - lo) * (w - 80) + 60
+
+    def sy(v):
+        return h - 30 - (np.clip(v, lo, hi) - lo) / (hi - lo) * (h - 60)
+
+    parts = [
+        f'<svg xmlns="http://www.w3.org/2000/svg" width="{w:.0f}" height="{h:.0f}">',
+        f'<rect width="{w:.0f}" height="{h:.0f}" fill="white"/>',
+    ]
+    for p in _DET_TICKS:
+        v = ppndf(np.array([p]))[0]
+        parts.append(
+            f'<line x1="{sx(v):.1f}" y1="{h-30:.1f}" x2="{sx(v):.1f}" y2="30" '
+            'stroke="#ddd"/>'
+            f'<text x="{sx(v):.1f}" y="{h-14:.1f}" font-size="9" '
+            f'text-anchor="middle">{p*100:g}</text>'
+            f'<line x1="60" y1="{sy(v):.1f}" x2="{w-20:.1f}" y2="{sy(v):.1f}" '
+            'stroke="#ddd"/>'
+            f'<text x="50" y="{sy(v)+3:.1f}" font-size="9" '
+            f'text-anchor="end">{p*100:g}</text>'
+        )
+    pts = " ".join(f"{sx(a):.1f},{sy(b):.1f}" for a, b in zip(xf, xm))
+    parts.append(
+        f'<polyline points="{pts}" fill="none" stroke="#1f4e89" stroke-width="1.5"/>'
+    )
+    parts.append(
+        f'<text x="{w/2:.0f}" y="{h-2:.0f}" font-size="11" text-anchor="middle">'
+        "False Alarm probability (%)</text>"
+        f'<text x="12" y="{h/2:.0f}" font-size="11" text-anchor="middle" '
+        f'transform="rotate(-90 12 {h/2:.0f})">Miss probability (%)</text>'
+        "</svg>"
+    )
+    with open(path, "w") as f:
+        f.write("\n".join(parts))
 
 
 def eer(target_scores: np.ndarray, nontarget_scores: np.ndarray) -> float:

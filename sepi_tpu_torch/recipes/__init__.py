@@ -17,10 +17,13 @@ from .phonetic import (
     train_combined_model,
     train_multitask_model,
 )
+from .drivers import AugmentOptions, RunResult, run_v2, run_v3, run_v4, run_v5
 from .s5 import S5Result, run_s5, select_voiced_ali
 
 __all__ = [
+    "AugmentOptions",
     "PhoneticFeatures",
+    "RunResult",
     "S5Result",
     "auto_heldout",
     "backend_eval",
@@ -32,6 +35,10 @@ __all__ = [
     "prepare_features_phonetic",
     "run_checkpointed",
     "run_s5",
+    "run_v2",
+    "run_v3",
+    "run_v4",
+    "run_v5",
     "select_voiced_ali",
     "train_adapted_model",
     "train_am_model",

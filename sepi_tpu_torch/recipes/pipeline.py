@@ -49,6 +49,7 @@ from ..ops.features import FeatureExtractor
 from ..ops.vad import energy_vad
 from ..train import (
     Trainer,
+    TrainState,
     build_optimizer,
     combine_checkpoints,
     create_train_state,
@@ -410,16 +411,23 @@ def train_xvector_model(
 
 def extract_and_score(
     model: torch.nn.Module,
-    state: Optional[Mapping[str, torch.Tensor]],
+    state,
     features: Mapping[str, np.ndarray],
     extract_cfg: ExtractConfig = ExtractConfig(),
     min_frames: int = 15,
     model_kwargs: Optional[Dict] = None,
+    mesh=None,
     device: DeviceLike = "cuda",
 ) -> Dict[str, np.ndarray]:
-    """Chunked embedding extraction for all utterances.  ``state`` is a
-    state_dict loaded into ``model`` first (e.g. from
-    `bridge.xvector_state_dict_from_flax`); None keeps the model's own."""
+    """Chunked embedding extraction for all utterances.  ``state`` is what
+    a trainer returned (a `TrainState`, whose ``model`` weights are loaded
+    into ``model``), a state_dict (e.g. from
+    `bridge.xvector_state_dict_from_flax`), or None to keep the model's
+    own weights.  The device mesh is not ported: a mesh raises."""
+    if mesh is not None:
+        raise NotImplementedError("the device mesh is not ported yet")
+    if isinstance(state, TrainState):
+        state = state.model.state_dict()
     if state is not None:
         model.load_state_dict(state)
     extractor = EmbeddingExtractor(model, extract_cfg, min_frames=min_frames,

@@ -93,6 +93,47 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         extract_and_score(XVector(V2_XVECTOR), None, {"u": np.zeros((50, 23), np.float32)})
 
 
+@pytest.mark.parametrize("driver", ["run_v2", "run_v3", "run_v4", "run_v5"])
+def test_drivers_refuse_cpu_fallback(monkeypatch, tmp_path, driver):
+    """A recipe driver called without device= raises with no usable GPU,
+    before it writes anything; so does the augmentation it runs."""
+    from sepi_tpu_torch.data import Dataset, Utterance
+    from sepi_tpu_torch.data.augment import augment_dataset, reverberate
+    from sepi_tpu_torch.recipes import drivers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = Dataset([Utterance("s-u", "s")], "d")
+    audio = {"s-u": np.zeros(8000, np.float32)}
+    args = (ds, audio, ds, audio) if driver == "run_v2" else (ds, audio, audio)
+    wd = tmp_path / "wd"
+    with pytest.raises(RuntimeError, match="cuda"):
+        getattr(drivers, driver)(*args, [], {}, str(wd))
+    assert not wd.exists()
+    with pytest.raises(RuntimeError, match="cuda"):
+        augment_dataset(ds, audio, rirs=[np.ones(4, np.float32)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        reverberate(audio["s-u"], np.ones(4, np.float32))
+
+
+_CLASSICAL_PROBE = r"""
+import sys
+sys.path.insert(0, {root!r})
+import sepi_tpu_torch.recipes.drivers
+bad = sorted(k for k in sys.modules if "classical" in k or "ivector" in k or "nnet2" in k)
+print(bad)
+"""
+
+
+def test_drivers_import_no_classical_module():
+    tree = ast.parse((ROOT / "sepi_tpu_torch" / "recipes" / "drivers.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            assert "classical" not in (node.module or "") and "ivector" not in (node.module or "")
+    out = subprocess.run([sys.executable, "-c", _CLASSICAL_PROBE.format(root=str(ROOT))],
+                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
 def test_chip_smoke_refuses_without_a_gpu():
     out = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=_env(),
