@@ -68,6 +68,18 @@ non-zero:
      reverberation's FFT on the card against the CPU's, every system's
      unseen-speaker EER beside its initial weights' (v2's must be below),
      and the Kaldi-format files read back equal to what the run held.
+ 10. the v1 i-vector systems on phase 9's corpus: a. run_v1 at full width
+     (UbmConfig(), IvectorConfig(), LDA 200, phase 9's mean-only
+     adaptation), its unseen-speaker EER below the same backend's on
+     i-vectors of the random initial T with the trained UBM, seconds per
+     stage and per inner step, peak memory; b. the DNN/i-vector variant:
+     paired features, pseudo_senone_alignments(hires, 4000),
+     train_nnet2_am(Nnet2Config(), 300 steps), run_v1 with
+     nnet2_posteriors; c. the card against the CPU: one full-width
+     E-step (log-likelihoods against a float64 evaluation), the i-vector
+     posterior of 16 utterances, and train_v1_frontend (K=64, M=32) and
+     nnet2_posteriors with TF32 turned on. Every MFCC batch of 10a/10b
+     (C = 20 and hires C = 40) is held against the plain version.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -542,18 +554,66 @@ def phase_viterbi(env, device="cuda"):
     return {"max_abs_err": worst, "cases": timed}
 
 
+class _MfccCapture:
+    """Every `FeatureExtractor.mfcc` batch of a block, kept with its output;
+    `check()` then holds each against the plain version."""
+
+    def __init__(self):
+        from sepi_tpu_torch.ops.features import FeatureExtractor
+
+        self.cls, self.batches = FeatureExtractor, []
+
+    def __enter__(self):
+        self.orig = self.cls.mfcc
+        cap = self
+
+        def mfcc(fe, samples, lengths=None, max_frames=None, utt_seeds=None):
+            feats, mask = cap.orig(fe, samples, lengths, max_frames, utt_seeds)
+            cap.batches.append((fe, samples, lengths, max_frames, utt_seeds, feats.clone(),
+                                mask.clone()))
+            return feats, mask
+
+        self.cls.mfcc = mfcc
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.mfcc = self.orig
+
+    def check(self, problems, label):
+        """{num_ceps: (batches, max abs err)} over the captured batches."""
+        import torch
+
+        from sepi_tpu_torch.ops import mfcc_cuda
+
+        out = {}
+        kernel_wrapper = mfcc_cuda.mfcc_fused
+        mfcc_cuda.mfcc_fused = mfcc_cuda.mfcc_fused_reference
+        try:
+            for fe, x, lens, t_max, seeds, out_k, m_k in self.batches:
+                out_p, m_p = self.orig(fe, x, lens, t_max, seeds)
+                err = float((out_k - out_p).abs().max())
+                if not (torch.equal(m_k, m_p) and bool(torch.isfinite(out_k).all())
+                        and err <= TOL):
+                    problems.append(f"{label}: mfcc C={fe.cfg.num_ceps} batch "
+                                    f"{tuple(x.shape)} max abs err {err}")
+                n, e = out.get(fe.cfg.num_ceps, (0, 0.0))
+                out[fe.cfg.num_ceps] = (n + 1, max(e, err))
+        finally:
+            mfcc_cuda.mfcc_fused = kernel_wrapper
+        self.batches.clear()
+        return out
+
+
 def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
              words_per_utt=(8, 16), cfg=None, cpu_check_utts=8):
     """make_phonetic_corpus -> prepare_features_phonetic -> run_s5 ->
     select_voiced_ali, then the checks against the plain versions."""
     import numpy as np
-    import torch
 
     from sepi_tpu_torch.align import mono, tied, viterbi_cuda
     from sepi_tpu_torch.config import AlignConfig
     from sepi_tpu_torch.data import make_phonetic_corpus
     from sepi_tpu_torch.ops import mfcc_cuda
-    from sepi_tpu_torch.ops.features import FeatureExtractor
     from sepi_tpu_torch.recipes import prepare_features_phonetic, run_s5, select_voiced_ali
 
     cfg = cfg or AlignConfig(lda_mllt=True, fmllr=True)
@@ -563,15 +623,8 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
 
     # keep references to every MFCC batch, to the final re-alignment's
     # inputs and to the largest Viterbi batch, for the checks after the run
-    captured = {"mfcc": []}
+    captured = {}
     orig_viterbi, orig_align = mono.viterbi_batch, tied.align_graphs
-    orig_fe_mfcc = FeatureExtractor.mfcc
-
-    def capture_mfcc(fe, samples, lengths=None, max_frames=None, utt_seeds=None):
-        feats_, mask_ = orig_fe_mfcc(fe, samples, lengths, max_frames, utt_seeds)
-        captured["mfcc"].append((fe, samples, lengths, max_frames, utt_seeds,
-                                 feats_.clone(), mask_.clone()))
-        return feats_, mask_
 
     def capture_viterbi(emit, t_len, trans, skip=4):
         if "viterbi" not in captured or emit.numel() > captured["viterbi"][0].numel():
@@ -589,22 +642,21 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
         log(f"  [{marks[-1][0]:8.2f} s] {msg}")
 
     mono.viterbi_batch, tied.align_graphs = capture_viterbi, capture_align
-    FeatureExtractor.mfcc = capture_mfcc
     try:
-        mfcc_cuda.mfcc_fused.launches = 0
-        viterbi_cuda.viterbi_batch.launches = 0
-        t0 = time.perf_counter()
-        feats = prepare_features_phonetic(corpus.audio, device=device)
-        stage("[smoke] features done")
-        res = run_s5(feats.full, corpus.transcripts, corpus.lexicon, cfg, log=stage,
-                     utt2spk=utt2spk, device=device)
-        voiced_ali = select_voiced_ali(res.alignments, feats.voiced)
-        secs = time.perf_counter() - t0
-        launches = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
-                    "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
+        with _MfccCapture() as cap:
+            mfcc_cuda.mfcc_fused.launches = 0
+            viterbi_cuda.viterbi_batch.launches = 0
+            t0 = time.perf_counter()
+            feats = prepare_features_phonetic(corpus.audio, device=device)
+            stage("[smoke] features done")
+            res = run_s5(feats.full, corpus.transcripts, corpus.lexicon, cfg, log=stage,
+                         utt2spk=utt2spk, device=device)
+            voiced_ali = select_voiced_ali(res.alignments, feats.voiced)
+            secs = time.perf_counter() - t0
+            launches = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
+                        "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
     finally:
         mono.viterbi_batch, tied.align_graphs = orig_viterbi, orig_align
-        FeatureExtractor.mfcc = orig_fe_mfcc
     stage("[smoke] run_s5 + select_voiced_ali done")
 
     frames = {u: f.shape[0] for u, f in feats.full.items()}
@@ -637,23 +689,11 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
 
     # every MFCC batch of the path against the plain version: the same
     # FeatureExtractor call, with the plain version in the kernel's place
-    mfcc_err = 0.0
-    kernel_wrapper = mfcc_cuda.mfcc_fused
-    mfcc_cuda.mfcc_fused = mfcc_cuda.mfcc_fused_reference
-    try:
-        for fe, x, lens, t_max, seeds, out_k, m_k in captured["mfcc"]:
-            out_p, m_p = orig_fe_mfcc(fe, x, lens, t_max, seeds)
-            err = float((out_k - out_p).abs().max())
-            if not (torch.equal(m_k, m_p) and bool(torch.isfinite(out_k).all())
-                    and err <= TOL):
-                raise AssertionError(f"mfcc at the s5 batch {tuple(x.shape)}: max abs err "
-                                     f"{err}, masks equal {torch.equal(m_k, m_p)}")
-            mfcc_err = max(mfcc_err, err)
-    finally:
-        mfcc_cuda.mfcc_fused = kernel_wrapper
-    log(f"  mfcc at the s5 path's {len(captured['mfcc'])} batches "
-        f"{sorted({tuple(c[1].shape) for c in captured['mfcc']})}: "
-        f"max abs err {mfcc_err:.3e} <= {TOL}")
+    n_mfcc, shapes, problems = len(cap.batches), sorted({tuple(c[1].shape) for c in cap.batches}), []
+    mfcc_err = max(e for _, e in cap.check(problems, "the s5 path").values())
+    if problems:
+        raise AssertionError("; ".join(problems))
+    log(f"  mfcc at the s5 path's {n_mfcc} batches {shapes}: max abs err {mfcc_err:.3e} <= {TOL}")
 
     # one more alignment pass on the final inputs, timing the host backtrace
     model, graphs, af = captured["align"]
@@ -1412,6 +1452,27 @@ P9_CORPUS = dict(words_per_utt=(3, 7), tilt_strength=0.06, f0_jitter=0.12,
 P9_ADAPT_BACKEND = dict(adapt_within_covar_scale=0.0, adapt_between_covar_scale=0.0)
 
 
+def corpus_v2(train=P9_TRAIN, evaluation=P9_EVAL, adapt=P9_ADAPT):
+    """Phases 9 and 10's corpora (speakers, utterances per speaker): train,
+    unseen eval with 1-3 enrollment utterances per speaker and the rest as
+    tests, and an unlabelled adaptation set."""
+    from sepi_tpu_torch.data import make_phonetic_corpus_v2
+
+    trn = make_phonetic_corpus_v2(num_speakers=train[0], utts_per_speaker=train[1], seed=100,
+                                  spk_prefix="trn", channel_seed=500, name="p9_train",
+                                  **P9_CORPUS)
+    evl = make_phonetic_corpus_v2(num_speakers=evaluation[0], utts_per_speaker=evaluation[1],
+                                  seed=101, spk_prefix="evl", channel_seed=600,
+                                  name="p9_eval", **P9_CORPUS)
+    adp = make_phonetic_corpus_v2(num_speakers=adapt[0], utts_per_speaker=adapt[1], seed=102,
+                                  spk_prefix="adp", channel_seed=600, name="p9_adapt",
+                                  **P9_CORPUS)
+    enroll = {s: us[:1 + i % 3] for i, (s, us) in enumerate(sorted(evl.dataset.spk2utt.items()))}
+    enrolled = {u for us in enroll.values() for u in us}
+    trials = [t for t in evl.trials if t.test not in enrolled]
+    return {"train": trn, "eval": evl, "adapt": adp, "enroll": enroll, "trials": trials}
+
+
 class _Tee:
     """stdout that is also kept, to read the drivers' stage lines back."""
 
@@ -1441,16 +1502,14 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     import shutil
 
     import numpy as np
-    import torch
 
     from sepi_tpu_torch.align import mono, viterbi_cuda
     from sepi_tpu_torch.config import AlignConfig, BackendConfig, TrainConfig
-    from sepi_tpu_torch.data import augment, make_phonetic_corpus_v2
+    from sepi_tpu_torch.data import augment
     from sepi_tpu_torch.data.augment import synthetic_rir
     from sepi_tpu_torch.metrics.det import compute_det, split_scores_by_trials
     from sepi_tpu_torch.models import lecun_normal_init
     from sepi_tpu_torch.ops import mfcc_cuda
-    from sepi_tpu_torch.ops.features import FeatureExtractor
     from sepi_tpu_torch.recipes import drivers, pipeline
     from sepi_tpu_torch.utils import kaldi_models, read_scp, read_vector
 
@@ -1460,19 +1519,9 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     root = os.path.join(ROOT, "build", "smoke_drivers")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
-    trn = make_phonetic_corpus_v2(num_speakers=train[0], utts_per_speaker=train[1], seed=100,
-                                  spk_prefix="trn", channel_seed=500, name="p9_train",
-                                  **P9_CORPUS)
-    evl = make_phonetic_corpus_v2(num_speakers=evaluation[0], utts_per_speaker=evaluation[1],
-                                  seed=101, spk_prefix="evl", channel_seed=600,
-                                  name="p9_eval", **P9_CORPUS)
-    adp = make_phonetic_corpus_v2(num_speakers=adapt[0], utts_per_speaker=adapt[1], seed=102,
-                                  spk_prefix="adp", channel_seed=600, name="p9_adapt",
-                                  **P9_CORPUS)
-    # 1-3 enrollment utterances per unseen speaker; the rest are tests
-    enroll = {s: us[:1 + i % 3] for i, (s, us) in enumerate(sorted(evl.dataset.spk2utt.items()))}
-    enrolled = {u for us in enroll.values() for u in us}
-    trials = [t for t in evl.trials if t.test not in enrolled]
+    corpus = corpus_v2(train, evaluation, adapt)
+    trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
+    enroll, trials = corpus["enroll"], corpus["trials"]
     rng = np.random.default_rng(9)
     augments = drivers.AugmentOptions(
         rirs=[synthetic_rir(seed=3), synthetic_rir(rt60=0.5, seed=4)],
@@ -1510,9 +1559,9 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     # what the drivers hand to extraction and to the backend, every MFCC
     # batch, and the largest Viterbi batch of each (T, S, skip)
     calls = {}
-    captured = {"mfcc": [], "viterbi": {}}
+    captured = {"viterbi": {}}
     orig_x, orig_b = pipeline.extract_and_score, pipeline.backend_eval
-    orig_fe_mfcc, orig_viterbi = FeatureExtractor.mfcc, mono.viterbi_batch
+    orig_viterbi = mono.viterbi_batch
 
     def cap_x(model, state, features, extract_cfg, min_frames, model_kwargs=None, mesh=None,
               device="cuda"):
@@ -1526,12 +1575,6 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
         calls[current]["backend"] = (args, kw, out)
         return out
 
-    def cap_mfcc(fe, samples, lengths=None, max_frames=None, utt_seeds=None):
-        feats_, mask_ = orig_fe_mfcc(fe, samples, lengths, max_frames, utt_seeds)
-        captured["mfcc"].append((fe, samples, lengths, max_frames, utt_seeds,
-                                 feats_.clone(), mask_.clone()))
-        return feats_, mask_
-
     def cap_viterbi(emit, t_len, trans, skip=4):
         key = (emit.shape[1], emit.shape[2], skip)
         held = captured["viterbi"].get(key)
@@ -1541,11 +1584,11 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
 
     results, wall, tee = {}, {}, _Tee(sys.stdout)
     pipeline.extract_and_score, pipeline.backend_eval = cap_x, cap_b
-    FeatureExtractor.mfcc, mono.viterbi_batch = cap_mfcc, cap_viterbi
+    mono.viterbi_batch = cap_viterbi
     try:
         mfcc_cuda.mfcc_fused.launches = 0
         viterbi_cuda.viterbi_batch.launches = 0
-        with contextlib.redirect_stdout(tee):
+        with contextlib.redirect_stdout(tee), _MfccCapture() as cap:
             for current in ("v2", "v3", "v4", "v5"):
                 calls[current] = {}
                 if current in ("v4", "v5"):  # one s5 run: v3's stage files, content-keyed
@@ -1560,7 +1603,7 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
                     "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
     finally:
         pipeline.extract_and_score, pipeline.backend_eval = orig_x, orig_b
-        FeatureExtractor.mfcc, mono.viterbi_batch = orig_fe_mfcc, orig_viterbi
+        mono.viterbi_batch = orig_viterbi
     out_text = "".join(tee.lines)
 
     problems = []
@@ -1571,23 +1614,9 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
         problems.append("the s5 stage did not run once in v3 and load from its cache in v4/v5")
 
     # the MFCC kernel on every corpus-v2 batch the path gave it, against its plain version
-    mfcc_err = 0.0
-    kernel_wrapper = mfcc_cuda.mfcc_fused
-    mfcc_cuda.mfcc_fused = mfcc_cuda.mfcc_fused_reference
-    try:
-        for fe, x, lens, t_max, seeds, out_k, m_k in captured["mfcc"]:
-            out_p, m_p = orig_fe_mfcc(fe, x, lens, t_max, seeds)
-            err = float((out_k - out_p).abs().max())
-            if not (torch.equal(m_k, m_p) and bool(torch.isfinite(out_k).all())
-                    and err <= TOL):
-                problems.append(f"mfcc on a corpus-v2 batch {tuple(x.shape)}: max abs err "
-                                f"{err}, masks equal {torch.equal(m_k, m_p)}")
-            mfcc_err = max(mfcc_err, err)
-    finally:
-        mfcc_cuda.mfcc_fused = kernel_wrapper
-    mfcc_shapes = sorted({tuple(c[1].shape) for c in captured["mfcc"]})
-    n_mfcc = len(captured["mfcc"])
-    captured["mfcc"].clear()
+    mfcc_shapes = sorted({tuple(c[1].shape) for c in cap.batches})
+    n_mfcc = len(cap.batches)
+    mfcc_err = max(e for _, e in cap.check(problems, "corpus-v2 batch").values())
 
     # the Viterbi kernel on the largest batch of each (T, S, skip) of the s5
     # stage: every warp-kernel layout (K) and skip the path ran
@@ -1679,7 +1708,373 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
         raise AssertionError("phase 9: " + "; ".join(problems))
     return {"launches": launches, "mfcc_err": mfcc_err, "viterbi_err": viterbi_err,
             "viterbi_shapes": viterbi_shapes, "eer": {k: r.eer for k, r in res.items()},
-            "eer_initial": {k: r.eer for k, r in initial.items()}}
+            "eer_initial": {k: r.eer for k, r in initial.items()},
+            "corpus": corpus}
+
+
+P10_SENONES, P10_NNET2_STEPS = 4000, 300  # Nnet2Config() senones; the reference's default steps
+# 10c, the card against the CPU (float32 on both; the sums run in other orders).
+# Full-covariance log-likelihoods are held against a float64 evaluation on
+# the CPU, each side within kappa_max * 2^-24 of the largest |value|: the
+# first-order error of a float32 inverse Cholesky factor of covariances whose
+# largest condition number is kappa_max.
+V1_POST_ATOL = 1e-3  # gselect posteriors: an ll error of 1e-4 moves a posterior ~1e-4
+V1_STATS_RTOL = 1e-3  # E-step statistics, of each array's largest |entry|
+V1_IVEC_RTOL = 1e-6  # posterior i-vectors: float64 from equal inputs, cast to float32
+V1_FRONTEND_RTOL = 1e-3  # train_v1_frontend end to end at K=64, M=32: UBM and T
+V1_COS = 0.999  # i-vectors of the two extractors, per utterance
+# nnet2 log-posteriors: float32 logits agree to ~1e-6; TF32 products (10-bit
+# mantissas) would move them by ~1e-3
+NNET2_LOGPOST_ATOL = 1e-4
+
+
+class _StepTimes:
+    """Wall seconds of the v1 recipe's inner steps (the card synchronised
+    around each), by wrapping `recipes.ivector_recipe`'s names."""
+
+    NAMES = ("train_diag_ubm", "train_full_ubm", "full_gmm_from_posteriors",
+             "stats_from_features", "train_ivector_extractor", "extract_ivectors")
+
+    def __init__(self, device):
+        self.device, self.seconds = device, {}
+
+    def __enter__(self):
+        import torch
+
+        from sepi_tpu_torch.recipes import ivector_recipe
+
+        self.mod, self.orig = ivector_recipe, {n: getattr(ivector_recipe, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def timed(*args, **kw):
+                if self.device != "cpu":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                if self.device != "cpu":
+                    torch.cuda.synchronize()
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return timed
+
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+    def __str__(self):
+        return ", ".join(f"{k} {v:.2f}" for k, v in self.seconds.items())
+
+
+def _fmt_mfcc(checked) -> str:
+    return ", ".join(f"C={c}: {n} batches max abs err {e:.3e}" for c, (n, e) in sorted(checked.items()))
+
+
+def _peak_gb(device) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if device != "cpu" else float("nan")
+
+
+def phase_v1_path(env, corpus, device="cuda", ubm_cfg=None, iv_cfg=None, lda_dim=200):
+    """Phase 10a: run_v1, the GMM/i-vector system, at full width
+    (`UbmConfig()`, `IvectorConfig()`, LDA 200, phase 9's mean-only PLDA
+    adaptation) on phase 9's corpus v2; the same backend on i-vectors of
+    `init_extractor`'s random T with the trained UBM must score worse on
+    the unseen speakers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.classical.ivector import init_extractor
+    from sepi_tpu_torch.config import BackendConfig, IvectorConfig, UbmConfig
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.recipes import drivers, ivector_recipe, pipeline
+
+    ubm_cfg, iv_cfg = ubm_cfg or UbmConfig(), iv_cfg or IvectorConfig()
+    trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
+    root = os.path.join(ROOT, "build", "smoke_v1")
+    shutil.rmtree(root, ignore_errors=True)
+    calls = {"extract": []}
+    orig_f, orig_e = ivector_recipe.train_v1_frontend, ivector_recipe.extract_v1_ivectors
+    orig_b = pipeline.backend_eval
+
+    def cap_f(*args, **kw):
+        calls["frontend"] = orig_f(*args, **kw)
+        return calls["frontend"]
+
+    def cap_e(ubm, ext, features, cfg, num_gselect, posteriors=None):
+        calls["extract"].append((features, num_gselect, posteriors))
+        return orig_e(ubm, ext, features, cfg, num_gselect, posteriors=posteriors)
+
+    def cap_b(*args, **kw):
+        calls["backend"] = (args, kw, orig_b(*args, **kw))
+        return calls["backend"][2]
+
+    problems = []
+    ivector_recipe.train_v1_frontend, ivector_recipe.extract_v1_ivectors = cap_f, cap_e
+    pipeline.backend_eval = cap_b
+    try:
+        with _MfccCapture() as cap, _StepTimes(device) as steps:
+            if device != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            mfcc_cuda.mfcc_fused.launches = 0
+            t0 = time.perf_counter()
+            res = drivers.run_v1(trn.dataset, trn.audio, evl.audio, corpus["trials"],
+                                 corpus["enroll"], root, ubm_cfg=ubm_cfg, iv_cfg=iv_cfg,
+                                 backend_cfg=BackendConfig(lda_dim=lda_dim, **P9_ADAPT_BACKEND),
+                                 adapt_audio=adp.audio, device=device)
+            wall = time.perf_counter() - t0
+            launches = mfcc_cuda.mfcc_fused.launches
+            peak = _peak_gb(device)
+    finally:
+        ivector_recipe.train_v1_frontend, ivector_recipe.extract_v1_ivectors = orig_f, orig_e
+        pipeline.backend_eval = orig_b
+    mfcc = cap.check(problems, "10a")
+
+    # the same backend on i-vectors of the random T with the trained UBM
+    ubm, ext = calls["frontend"]
+    t0 = time.perf_counter()
+    ext0 = init_extractor(ubm, iv_cfg.ivector_dim, seed=0)
+    (f_main, ng, p_main), (f_adapt, _, p_adapt) = calls["extract"]
+    iv0 = orig_e(ubm, ext0, f_main, iv_cfg, ng, posteriors=p_main)
+    a0 = orig_e(ubm, ext0, f_adapt, iv_cfg, ng, posteriors=p_adapt)
+    args, kw, _ = calls["backend"]
+    random_t = orig_b(iv0, *args[1:], **dict(kw, adapt_vectors=np.stack(list(a0.values()))))[0]
+    random_secs = time.perf_counter() - t0
+    r = res.pooled
+    if device != "cpu" and launches <= 0:
+        problems.append("10a: run_v1 launched no MFCC kernel")
+    if not all(np.isfinite(v) for v in list(r.as_dict().values()) + list(
+            random_t.as_dict().values())):
+        problems.append("10a: non-finite result")
+    if not r.eer < random_t.eer:
+        problems.append(f"10a: trained-T EER {100 * r.eer:.3f}% not below random-T "
+                        f"{100 * random_t.eer:.3f}%")
+    feats_train = {u: np.array(f_main[u]) for u in trn.dataset.utt_ids if u in f_main}
+    log(f"phase 10a run_v1 (GMM/i-vector) on {env['smi'] if env else device}: "
+        f"{ubm_cfg}, {iv_cfg}, LDA {lda_dim}, PLDA adaptation {P9_ADAPT_BACKEND}; corpus v2 "
+        f"train {len(trn.audio)} utts ({sum(f.shape[0] for f in feats_train.values())} voiced "
+        f"frames), unseen eval {len(evl.audio)}, adapt {len(adp.audio)}; {len(iv0)} i-vectors; "
+        f"wall {wall:.2f} s: " + ", ".join(f"{k} {v:.2f}" for k, v in res.seconds.items())
+        + f" (inside: {steps}); mfcc launches {launches}; unseen-speaker EER "
+        f"{100 * r.eer:.3f}% minDCF08 {r.min_dcf08:.4f} ({r.num_target} target / {r.num_nontarget} nontarget) against "
+        f"random T {100 * random_t.eer:.3f}% minDCF08 {random_t.min_dcf08:.4f} (extraction and "
+        f"backend {random_secs:.2f} s); peak memory {peak:.2f} GB; {_fmt_mfcc(mfcc)} "
+        f"<= {TOL}")
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 10a: " + "; ".join(problems))
+    return {"launches": launches, "mfcc": mfcc, "ubm": ubm, "ext": ext, "feats": feats_train,
+            "eer": r.eer, "eer_random": random_t.eer, "iv_cfg": iv_cfg, "ubm_cfg": ubm_cfg}
+
+
+def phase_v1_dnn_path(env, corpus, device="cuda", nnet2_cfg=None, num_steps=P10_NNET2_STEPS,
+                      train_cfg=None, ubm_cfg=None, iv_cfg=None, lda_dim=200):
+    """Phase 10b: the DNN/i-vector variant: paired sid/hires features ->
+    `pseudo_senone_alignments(hires, num_senones)` -> `train_nnet2_am`
+    (`Nnet2Config()`, the reference's 300 steps and optimizer) ->
+    `run_v1(posterior_provider=nnet2_posteriors)`."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.config import BackendConfig, IvectorConfig, UbmConfig
+    from sepi_tpu_torch.models import Nnet2Config
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.recipes import (drivers, nnet2_posteriors, prepare_paired_features,
+                                        pseudo_senone_alignments, train_nnet2_am)
+
+    cfg = nnet2_cfg or Nnet2Config()
+    ubm_cfg, iv_cfg = ubm_cfg or UbmConfig(), iv_cfg or IvectorConfig()
+    trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
+    root = os.path.join(ROOT, "build", "smoke_v1_dnn")
+    shutil.rmtree(root, ignore_errors=True)
+    logs = []
+
+    def logger(n, task, metrics):
+        logs.append((time.perf_counter(), n, task, dict(metrics)))
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    problems = []
+    with _MfccCapture() as cap:
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        mfcc_cuda.mfcc_fused.launches = 0
+        t = [time.perf_counter()]
+        _, hires = prepare_paired_features(trn.audio, device=device)
+        sync()
+        t.append(time.perf_counter())
+        ali = pseudo_senone_alignments(hires, cfg.num_senones, device=device)
+        t.append(time.perf_counter())
+        model, state = train_nnet2_am(hires, ali, cfg, train_cfg, num_steps=num_steps,
+                                      log=logger, device=device)
+        sync()
+        t.append(time.perf_counter())
+        provider = functools.partial(nnet2_posteriors, model, state, device=device)
+        with _StepTimes(device) as steps:
+            res = drivers.run_v1(trn.dataset, trn.audio, evl.audio, corpus["trials"],
+                                 corpus["enroll"], root, ubm_cfg=ubm_cfg, iv_cfg=iv_cfg,
+                                 backend_cfg=BackendConfig(lda_dim=lda_dim, **P9_ADAPT_BACKEND),
+                                 adapt_audio=adp.audio, posterior_provider=provider,
+                                 device=device)
+        t.append(time.perf_counter())
+        launches = mfcc_cuda.mfcc_fused.launches
+        peak = _peak_gb(device)
+    mfcc = cap.check(problems, "10b")
+    train_logs = [x for x in logs if x[2] == "am"]
+    step_ms = (1e3 * (train_logs[-1][0] - train_logs[0][0]) / (train_logs[-1][1] - train_logs[0][1])
+               if len(train_logs) > 1 else float("nan"))
+    r = res.pooled
+    if device != "cpu" and launches <= 0:
+        problems.append("10b: the DNN/i-vector path launched no MFCC kernel")
+    if not np.all(np.isfinite(list(r.as_dict().values()))):
+        problems.append("10b: non-finite result")
+    last = train_logs[-1][3] if train_logs else {}
+    log(f"phase 10b run_v1 (DNN/i-vector) on {env['smi'] if env else device}: labels "
+        f"pseudo_senone_alignments(hires, {cfg.num_senones}) on {len(hires)} utts "
+        f"({sum(h.shape[0] for h in hires.values())} frames) in {t[2] - t[1]:.2f} s; "
+        f"train_nnet2_am {cfg.pnorm_output_dim * cfg.group_size} -> {cfg.pnorm_output_dim} x "
+        f"{len(cfg.specs)} layers, {cfg.num_senones} senones, {num_steps} steps in "
+        f"{t[3] - t[2]:.2f} s ({step_ms:.2f} ms a step between logs; last log objf "
+        f"{last.get('objf', float('nan')):.4f} accuracy {last.get('accuracy', float('nan')):.4f}, "
+        f"chance {1 / cfg.num_senones:.5f}); paired features {t[1] - t[0]:.2f} s; run_v1 "
+        f"{t[4] - t[3]:.2f} s: " + ", ".join(f"{k} {v:.2f}" for k, v in res.seconds.items())
+        + f" (inside: {steps}); mfcc launches {launches}; unseen-speaker EER {100 * r.eer:.3f}% minDCF08 "
+        f"{r.min_dcf08:.4f}; peak memory {peak:.2f} GB; {_fmt_mfcc(mfcc)} <= {TOL}")
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 10b: " + "; ".join(problems))
+    hires_few = {u: hires[u] for u in sorted(hires)[:4]}
+    return {"launches": launches, "mfcc": mfcc, "eer": r.eer, "model": model,
+            "hires": hires_few, "step_ms": step_ms}
+
+
+def _log_gap(p, q) -> float:
+    """max |log p - log q| of two posterior arrays."""
+    import numpy as np
+
+    return float(np.abs(np.log(np.maximum(p, 1e-30)) - np.log(np.maximum(q, 1e-30))).max())
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+
+
+def phase_v1_agreement(env, v1, dnn, device="cuda", frames=4096, utts=16, small_k=64, small_m=32,
+                       frontend_utts=200):
+    """Phase 10c: the card against the CPU, under PyTorch's default TF32
+    flags (cuDNN TF32 on): one full-width E-step, `posterior_ivectors` on
+    16 utterances at the trained extractor's width, and two entry points
+    with TF32 on for both matmuls and cuDNN, held end to end:
+    `train_v1_frontend` at K=64, M=32 and `nnet2_posteriors` with 10b's
+    model."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.classical.gmm import accumulate_stats, gselect_posteriors
+    from sepi_tpu_torch.classical.ivector import IvectorStats, posterior_ivectors, stats_from_features
+    from sepi_tpu_torch.config import IvectorConfig, UbmConfig
+    from sepi_tpu_torch.recipes import extract_v1_ivectors, nnet2_posteriors, train_v1_frontend
+
+    ubm, ext, feats = v1["ubm"], v1["ext"], v1["feats"]
+    ubm_cfg, iv_cfg = v1["ubm_cfg"], v1["iv_cfg"]
+    cpu = torch.device("cpu")
+    problems, msgs = [], []
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+    def hold(label, value, limit, bigger_is_worse=True):
+        msgs.append(f"{label} {value:.3e} (limit {limit})")
+        if not (value <= limit if bigger_is_worse else value >= limit):
+            problems.append(f"{label} {value} against {limit}")
+
+    try:
+        # PyTorch's defaults: TF32 off for matmuls, on for cuDNN
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+        names = sorted(feats)
+        x = np.concatenate([feats[u] for u in names])[:frames]
+        ubm_c = ubm.to(cpu)
+        xd, xc = torch.as_tensor(x, device=ubm.means.device), torch.as_tensor(x)
+        ll_d, ll_c = ubm.log_likes(xd), ubm_c.log_likes(xc)
+        ubm64 = type(ubm_c)(*(a.double() for a in (ubm_c.weights, ubm_c.means, ubm_c.covars)))
+        ll64 = ubm64.log_likes(xc.double())
+        eig = torch.linalg.eigvalsh(ubm64.covars)
+        ll_tol = float((eig[:, -1] / eig[:, 0]).max()) * 2.0 ** -24
+        hold("E-step log-likes, card vs float64", _rel_err(ll64, ll_d), ll_tol)
+        hold("E-step log-likes, CPU vs float64", _rel_err(ll64, ll_c), ll_tol)
+        msgs.append(f"E-step log-likes card vs CPU {_rel_err(ll_c, ll_d):.3e}")
+        pd = gselect_posteriors(ubm.log_likes(xd), ubm_cfg.full_gselect, iv_cfg.min_post)
+        pc = gselect_posteriors(ubm_c.log_likes(xc), ubm_cfg.full_gselect, iv_cfg.min_post)
+        hold("gselect posteriors max abs", float((pd.cpu() - pc).abs().max()), V1_POST_ATOL)
+        sd = accumulate_stats(ubm, xd, num_gselect=ubm_cfg.full_gselect, full=True)
+        sc = accumulate_stats(ubm_c, xc, num_gselect=ubm_cfg.full_gselect, full=True)
+        for f in ("gamma", "first", "second"):
+            hold(f"full stats {f}", _rel_err(getattr(sc, f), getattr(sd, f)), V1_STATS_RTOL)
+        _, st = stats_from_features(ext, ubm, {u: feats[u] for u in names[:utts]}, iv_cfg,
+                                    ubm_cfg.full_gselect)
+        wd, cd = posterior_ivectors(ext, st, iv_cfg.posterior_scale)
+        wc, cc = posterior_ivectors(ext.to(cpu), IvectorStats(st.n.cpu(), st.f.cpu()),
+                                    iv_cfg.posterior_scale)
+        hold(f"posterior_ivectors ({utts} utts) mean", _rel_err(wc, wd), V1_IVEC_RTOL)
+        hold(f"posterior_ivectors ({utts} utts) cov", _rel_err(cc, cd), V1_IVEC_RTOL)
+
+        # entry points with TF32 turned on for matmuls and cuDNN
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = True, True
+        sub = {u: feats[u] for u in names[:frontend_utts]}
+        # two T iterations, as the CPU parity tests: T is determined only up to
+        # near-flat directions, and each EM iteration carries the rounding on
+        k_cfg = UbmConfig(num_gauss=small_k)
+        m_cfg = IvectorConfig(ivector_dim=small_m, num_iters=2)
+        ubm_d, ext_d = train_v1_frontend(sub, k_cfg, m_cfg, device=device)
+        if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != (True, True):
+            problems.append("train_v1_frontend did not restore the caller's TF32 flags")
+        ubm_h, ext_h = train_v1_frontend(sub, k_cfg, m_cfg, device="cpu")
+        for f in ("weights", "means", "covars"):
+            hold(f"train_v1_frontend UBM {f}", _rel_err(getattr(ubm_h, f), getattr(ubm_d, f)),
+                 V1_FRONTEND_RTOL)
+        hold("train_v1_frontend T", _rel_err(ext_h.t, ext_d.t), V1_FRONTEND_RTOL)
+        iv_d = extract_v1_ivectors(ubm_d, ext_d, sub, m_cfg)
+        iv_h = extract_v1_ivectors(ubm_h, ext_h, sub, m_cfg)
+        cos = min(float(np.dot(iv_d[u], iv_h[u]) / np.linalg.norm(iv_d[u]) /
+                        np.linalg.norm(iv_h[u])) for u in sub)
+        hold("train_v1_frontend i-vector cosine min", cos, V1_COS, bigger_is_worse=False)
+        model = dnn["model"]
+        model_c = copy.deepcopy(model).to(cpu)
+        post_d = nnet2_posteriors(model, None, dnn["hires"], device=device)
+        post_h = nnet2_posteriors(model_c, None, dnn["hires"], device="cpu")
+        hold("nnet2_posteriors log max abs", max(_log_gap(post_d[u], post_h[u])
+                                                 for u in post_h), NNET2_LOGPOST_ATOL)
+        # the same forward outside the entry point, TF32 on: what the repair prevents
+        with torch.no_grad():
+            u = sorted(dnn["hires"])[0]
+            l, r = model.cfg.context
+            h = np.pad(dnn["hires"][u], ((l, r), (0, 0)), mode="edge")[None]
+            raw = torch.softmax(model(torch.as_tensor(h, device=device))["logits"], -1)[0]
+            tf32_gap = _log_gap(raw.cpu().numpy(), post_h[u])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    log(f"phase 10c v1 card vs CPU on {env['smi'] if env else device}: {frames} frames at "
+        f"K={ubm.num_comp}, D={ubm.dim}, gselect {ubm_cfg.full_gselect}, and {utts} utts at "
+        f"M={ext.ivector_dim} under PyTorch's default flags (cuDNN TF32 on); train_v1_frontend "
+        f"(K={small_k}, M={small_m}, {len(sub)} utts, {k_cfg.num_iters_init}+"
+        f"{k_cfg.num_iters_full} UBM and {m_cfg.num_iters} T iterations) and nnet2_posteriors "
+        f"({len(dnn['hires'])} utts) with TF32 on for matmuls and cuDNN: " + "; ".join(msgs)
+        + f"; the nnet2 forward outside the entry point with TF32 on: log max abs "
+        f"{tf32_gap:.3e} (not held)")
+    if problems:
+        raise AssertionError("phase 10c: " + "; ".join(problems))
 
 
 def main() -> int:
@@ -1723,6 +2118,15 @@ def main() -> int:
     t9 = time.perf_counter()
     drv = phase_driver_path(env)
     log(f"phase 9 wall on {env['smi']}: {time.perf_counter() - t9:.1f} s")
+    t10 = [time.perf_counter()]
+    v1 = phase_v1_path(env, drv["corpus"])
+    t10.append(time.perf_counter())
+    dnn = phase_v1_dnn_path(env, drv["corpus"])
+    t10.append(time.perf_counter())
+    phase_v1_agreement(env, v1, dnn)
+    t10.append(time.perf_counter())
+    log(f"phase 10 wall on {env['smi']}: 10a {t10[1] - t10[0]:.1f} s, 10b {t10[2] - t10[1]:.1f} s, "
+        f"10c {t10[3] - t10[2]:.1f} s")
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -1730,7 +2134,14 @@ def main() -> int:
     log(f"c-vector path launches: phase 6 {s5['launches']} + phase 8b {cvec['launches']}")
     mfcc["launches_cvector_path"] = cv_launches["mfcc_fused"]
     mfcc["launches_driver_path"] = drv["launches"]["mfcc_fused"]
-    mfcc["max_abs_err"] = max(mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"])
+    mfcc["launches_v1_path"] = v1["launches"]
+    mfcc["launches_v1_dnn_path"] = dnn["launches"]
+    mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
+        {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
+                          for c, (n, e) in dnn["mfcc"].items()}}.items())}
+    mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"]]
+                              + [e for _, e in v1["mfcc"].values()]
+                              + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]
     vit_rec = {
         "name": "viterbi_batch", "route": "cuda",

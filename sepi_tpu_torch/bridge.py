@@ -1,4 +1,5 @@
-"""Weights across from the reference: x-vector variables, aligner models.
+"""Weights across from the reference: network variables, aligner models,
+the classical v1 models.
 
 `mono_aligner_from_jax` and `tied_tree_from_jax` carry the reference
 aligner's GMM arrays and its senone tree into the port, so both packages
@@ -18,6 +19,12 @@ Layouts:
   ``running_mean``/``running_var``.
 - a Dense kernel (in, out) (``segment/output``, ``output_am``, the AM's
   ``output``) -> ``Linear.weight`` (out, in).
+- a bare ``nn.Conv`` node (the nnet2's ``layer{i}/affine``, no batch norm)
+  -> ``Conv1d.weight``/``bias`` (`nnet2_state_dict_from_flax`).
+
+`diag_gmm_from_jax`, `full_gmm_from_jax` and `ivector_extractor_from_jax`
+take the reference's classical models (any object with the same array
+attributes) to the port's, on a device.
 
 `flax_variables_from_state_dict` is the inverse: a port model's
 `state_dict` -> the reference's ``{'params', 'batch_stats'}`` tree of
@@ -51,10 +58,10 @@ def _layer(prefix: str, params: Mapping, stats: Mapping) -> Dict[str, torch.Tens
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Any TDNN-family tree (x-vector, AM net, c-vectors) -> a torch
+    """Any TDNN-family tree (x-vector, AM net, c-vectors, nnet2) -> a torch
     `state_dict` under the same module paths: a node holding ``affine`` and
     ``batchnorm`` is a `TdnnLayer`, a node holding a 2-D ``kernel`` a
-    `Linear`; every other node is walked into."""
+    `Linear`, a 3-D ``kernel`` a `Conv1d`; every other node is walked into."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, params: Mapping, stats: Mapping) -> None:
@@ -62,6 +69,9 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             out.update(_layer(prefix, params, stats))
         elif "kernel" in params and np.ndim(params["kernel"]) == 2:
             out[f"{prefix}.weight"] = _t(np.asarray(params["kernel"]).T)
+            out[f"{prefix}.bias"] = _t(params["bias"])
+        elif "kernel" in params and np.ndim(params["kernel"]) == 3:
+            out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(params["kernel"]), (2, 1, 0)))
             out[f"{prefix}.bias"] = _t(params["bias"])
         else:
             for name, child in params.items():
@@ -76,6 +86,46 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 def xvector_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """Flax x-vector variables -> a `models.XVector` state_dict."""
     return state_dict_from_flax(variables)
+
+
+def nnet2_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax `Nnet2Multisplice` variables -> a `models.Nnet2Multisplice`
+    state_dict (``layer{i}.affine`` Conv1d, ``output`` Linear)."""
+    return state_dict_from_flax(variables)
+
+
+def _arr(x, dev) -> torch.Tensor:
+    return _t(x).to(dev)
+
+
+def diag_gmm_from_jax(gmm, device="cuda"):
+    """The reference's `DiagGmm` (``weights``, ``means``, ``vars``) ->
+    `classical.gmm.DiagGmm` on ``device``."""
+    from .classical.gmm import DiagGmm
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    return DiagGmm(_arr(gmm.weights, dev), _arr(gmm.means, dev), _arr(gmm.vars, dev))
+
+
+def full_gmm_from_jax(gmm, device="cuda"):
+    """The reference's `FullGmm` (``weights``, ``means``, ``covars``) ->
+    `classical.gmm.FullGmm` on ``device``."""
+    from .classical.gmm import FullGmm
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    return FullGmm(_arr(gmm.weights, dev), _arr(gmm.means, dev), _arr(gmm.covars, dev))
+
+
+def ivector_extractor_from_jax(ext, device="cuda"):
+    """The reference's `IvectorExtractor` (``t``, ``whitener``, ``means``)
+    -> `classical.ivector.IvectorExtractor` on ``device``."""
+    from .classical.ivector import IvectorExtractor
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    return IvectorExtractor(_arr(ext.t, dev), _arr(ext.whitener, dev), _arr(ext.means, dev))
 
 
 def flax_variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:

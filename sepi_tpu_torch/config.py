@@ -1,10 +1,11 @@
 """The configs of the ported paths.
 
 A copy of the dataclasses these paths read from `sepi_tpu/config.py`
-(`FrontendConfig`, `VadConfig`, `CmvnConfig`, `ChunkConfig`,
-`OptimizerConfig`, `TrainConfig`, `ExtractConfig`, `BackendConfig`,
-`AlignConfig`), with the same fields and defaults, so a config built for
-either package means the same thing in the other.
+(`FrontendConfig` and its presets `MFCC_SRE_IVECTOR`/`MFCC_HIRES`,
+`VadConfig`, `CmvnConfig`, `ChunkConfig`, `OptimizerConfig`,
+`TrainConfig`, `ExtractConfig`, `BackendConfig`, `UbmConfig`,
+`IvectorConfig`, `AlignConfig`), with the same fields and defaults, so a
+config built for either package means the same thing in the other.
 """
 
 from __future__ import annotations
@@ -69,6 +70,17 @@ class FrontendConfig:
         return self.high_freq if self.high_freq > 0 else self.nyquist + self.high_freq
 
     replace = _replace
+
+
+# Named presets matching the reference conf/ files.
+MFCC_SRE_IVECTOR = FrontendConfig(num_ceps=20)  # v1/conf/mfcc.conf
+MFCC_HIRES = FrontendConfig(  # v1/conf/mfcc_hires.conf
+    use_energy=False,
+    num_mel_bins=40,
+    num_ceps=40,
+    low_freq=40.0,
+    high_freq=-200.0,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,6 +198,35 @@ class BackendConfig:
     adapt_between_covar_scale: float = 0.25
     # on-device scoring is not ported yet; True raises in score_trials
     device_scoring: bool = False
+
+    replace = _replace
+
+
+@dataclasses.dataclass(frozen=True)
+class UbmConfig:
+    """GMM-UBM training (sid/train_diag_ubm.sh + train_full_ubm.sh)."""
+
+    num_gauss: int = 2048
+    num_gselect: int = 20  # diag stage (train_diag_ubm.sh num_gselect)
+    full_gselect: int = 20
+    num_iters_init: int = 4
+    num_iters_full: int = 4
+    min_post: float = 0.025
+    subsample: int = 5  # train on every 5th frame, like train_diag_ubm.sh
+    min_gaussian_weight: float = 1e-4
+    remove_low_count_gaussians: bool = False
+
+    replace = _replace
+
+
+@dataclasses.dataclass(frozen=True)
+class IvectorConfig:
+    """i-vector extractor (sid/train_ivector_extractor.sh)."""
+
+    ivector_dim: int = 600
+    num_iters: int = 5
+    min_post: float = 0.025
+    posterior_scale: float = 1.0
 
     replace = _replace
 

@@ -7,6 +7,9 @@ logging, per-condition reporting and Kaldi-format outputs.  Inputs are
 explicit data objects, not corpus paths: LDC-gated corpora are supplied by
 the caller as (Dataset, audio, trials [, transcripts/alignments]).
 
+  run_v1  GMM/i-vector + LDA/PLDA        (egs/sre/v1/run_sre10.sh), and
+          with ``posterior_provider`` the DNN/i-vector variant
+          (run_sre10_nnet2.sh)
   run_v2  x-vector                       (egs/sre/v2/run_sre10.sh)
   run_v3  multitask c-vector             (egs/sre/v3/run_sre10.sh)
   run_v4  phonetic adaptation            (egs/sre/v4/run_sre10.sh)
@@ -18,10 +21,11 @@ in-domain set adapt the PLDA covariances before scoring.
 
 Each driver takes the reference's arguments plus ``device=`` (default
 "cuda") and passes it to every stage: the features (MFCC kernel), the s5
-aligner (Viterbi kernel), the augmentation's FFT, the trainers and the
-extraction.  The device mesh is not ported: a mesh raises, as a training
-entry point does.  `RunResult.seconds` holds each stage's wall seconds.
-(The GMM/i-vector driver ``run_v1`` is not ported yet.)
+aligner (Viterbi kernel), the augmentation's FFT, the UBM and T-matrix
+EM, the trainers and the extraction.  The device mesh is not ported: a
+mesh raises, as a training entry point does.  `RunResult.seconds` holds
+each stage's wall seconds.  Every driver runs inside `device.fp32_math`
+(no TF32).  The classical modules load only when `run_v1` runs.
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import BackendConfig, ExtractConfig, TrainConfig
+from ..config import BackendConfig, ExtractConfig, IvectorConfig, TrainConfig, UbmConfig
 from ..data.manifest import Dataset, Trial
-from ..device import DeviceLike
+from ..device import DeviceLike, fp32_math, resolve_device
 from ..metrics.det import EvalResult
 from ..metrics.report import evaluate_conditions, format_report
 from ..models import AdaptedConfig, AmConfig, CombinedConfig, MultitaskConfig, XVectorConfig
@@ -224,6 +228,141 @@ def _finish(
     return RunResult(conds, art["scores"], report, dict(stages.seconds))
 
 
+@fp32_math()
+def run_v1(
+    train_dataset: Dataset,
+    train_audio: Mapping[str, np.ndarray],
+    eval_audio: Mapping[str, np.ndarray],
+    trials: Sequence[Trial],
+    enroll_spk2utt: Mapping[str, Sequence[str]],
+    workdir: str,
+    ubm_cfg: UbmConfig = UbmConfig(),
+    iv_cfg: IvectorConfig = IvectorConfig(),
+    backend_cfg: Optional[BackendConfig] = None,
+    adapt_audio: Optional[Mapping[str, np.ndarray]] = None,
+    condition_fn=None,
+    posterior_provider=None,
+    export_kaldi: bool = False,
+    device: DeviceLike = "cuda",
+) -> RunResult:
+    """GMM/i-vector (run_sre10.sh) or, with ``posterior_provider``, the
+    DNN/i-vector variant (run_sre10_nnet2.sh): the provider maps a dict
+    of 40-dim hires features to senone posterior dicts (e.g.
+    `functools.partial(nnet2_recipe.nnet2_posteriors, model, state)`);
+    the UBM and T-matrix statistics then come from the paired 20-dim sid
+    stream with those posteriors (`init_full_ubm_from_dnn.sh:100-116`).
+
+    The UBM + T-matrix and the i-vectors are cached stages (the
+    reference persists final.ubm/final.ie/ivector.scp and resumes past
+    them, `v1/run_sre10.sh:89-137`).  ``export_kaldi`` also writes the
+    trained front end in the Kaldi wire format (<workdir>/kaldi/
+    {final.ubm, final.ie}; ~600 MB at reference scale, hence opt-in).
+    Stage seconds: features, posteriors (DNN variant), ubm_tmatrix,
+    ivectors, backend, files."""
+    from ..classical.gmm import FullGmm
+    from ..classical.ivector import IvectorExtractor
+    from .ivector_recipe import (
+        extract_v1_ivectors,
+        iter_features_ivector,
+        prepare_features_ivector,
+        train_v1_frontend,
+    )
+    from .nnet2_recipe import prepare_paired_features
+
+    dev = resolve_device(device)
+    stages = _Stages(dev)
+    cache = ArtifactCache(workdir)
+    log = MetricsLogger(f"{workdir}/metrics.jsonl")
+    backend_cfg = backend_cfg or BackendConfig(lda_dim=200)  # v1 uses 200
+
+    if posterior_provider is None:
+        feats_train = cache.stage_store(
+            "ivec_feats_train", [train_dataset.name, _audio_fingerprint(train_audio)],
+            lambda: iter_features_ivector(train_audio, device=dev), log=print,
+        )
+        feats_eval = cache.stage_store(
+            "ivec_feats_eval", [_audio_fingerprint(eval_audio)],
+            lambda: iter_features_ivector(eval_audio, device=dev), log=print,
+        )
+        post_train = post_all = None
+        stages.mark("features")
+    else:
+        def _paired(audio):
+            sid, hires = prepare_paired_features(audio, device=dev)
+            return {"sid": sid, "hires": hires}
+
+        pt = cache.stage(
+            "paired_feats_train", [train_dataset.name, _audio_fingerprint(train_audio)],
+            lambda: _paired(train_audio), log=print,
+        )
+        pe = cache.stage(
+            "paired_feats_eval", [_audio_fingerprint(eval_audio)],
+            lambda: _paired(eval_audio), log=print,
+        ) if eval_audio else {"sid": {}, "hires": {}}
+        feats_train = {k: np.asarray(v, np.float32) for k, v in pt["sid"].items()}
+        feats_eval = {k: np.asarray(v, np.float32) for k, v in pe["sid"].items()}
+        hires = {
+            **{k: np.asarray(v, np.float32) for k, v in pt["hires"].items()},
+            **{k: np.asarray(v, np.float32) for k, v in pe["hires"].items()},
+        }
+        stages.mark("features")
+        post_all = posterior_provider(hires)
+        post_train = {u: post_all[u] for u in feats_train}
+        stages.mark("posteriors")
+    _fkey = [train_dataset.name, _audio_fingerprint(train_audio),
+             ubm_cfg, iv_cfg, posterior_provider is not None]
+
+    def _frontend_stage():
+        u, e = train_v1_frontend(feats_train, ubm_cfg, iv_cfg, posteriors=post_train,
+                                 device=dev)
+        return {
+            "ubm": {k: getattr(u, k).cpu().numpy() for k in ("weights", "means", "covars")},
+            "ext": {k: getattr(e, k).cpu().numpy() for k in ("t", "whitener", "means")},
+        }
+
+    art = cache.stage("v1_frontend", _fkey, _frontend_stage, log=print)
+
+    def _on_dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    ubm = FullGmm(*(_on_dev(art["ubm"][k]) for k in ("weights", "means", "covars")))
+    ext = IvectorExtractor(*(_on_dev(art["ext"][k]) for k in ("t", "whitener", "means")))
+    stages.mark("ubm_tmatrix")
+    if export_kaldi:
+        from ..utils import kaldi_models as _km
+
+        kdir = os.path.join(workdir, "kaldi")
+        os.makedirs(kdir, exist_ok=True)
+        _km.write_full_ubm(os.path.join(kdir, "final.ubm"), ubm)
+        _km.write_ivector_extractor(os.path.join(kdir, "final.ie"), ext)
+        stages.mark("files")
+    ivecs = cache.stage(
+        "v1_ivectors", _fkey + [_audio_fingerprint(eval_audio)],
+        lambda: extract_v1_ivectors(ubm, ext, {**feats_train, **feats_eval}, iv_cfg,
+                                    ubm_cfg.full_gselect, posteriors=post_all),
+        log=print,
+    )
+    ivecs = {u: np.asarray(v, np.float32) for u, v in ivecs.items()}
+    stages.mark("ivectors")
+    adapt_embs = None
+    if adapt_audio is not None:
+        if posterior_provider is None:
+            fa = prepare_features_ivector(adapt_audio, device=dev)
+            pa = None
+            stages.mark("features")
+        else:
+            fa, ha = prepare_paired_features(adapt_audio, device=dev)
+            stages.mark("features")
+            pa = posterior_provider(ha)
+            stages.mark("posteriors")
+        a = extract_v1_ivectors(ubm, ext, fa, iv_cfg, ubm_cfg.full_gselect, posteriors=pa)
+        adapt_embs = np.stack(list(a.values()))
+        stages.mark("ivectors")
+    return _finish(ivecs, train_dataset, trials, enroll_spk2utt, backend_cfg,
+                   adapt_embs, condition_fn, log, workdir, stages)
+
+
+@fp32_math()
 def run_v2(
     train_dataset: Dataset,
     train_audio: Mapping[str, np.ndarray],
@@ -380,6 +519,7 @@ def _phonetic_front(train_dataset, train_audio, eval_audio, alignments, workdir,
     return train_dataset, feats_train, feats_eval, alignments, num_senones
 
 
+@fp32_math()
 def run_v3(
     train_dataset: Dataset,
     train_audio: Mapping[str, np.ndarray],
@@ -436,6 +576,7 @@ def run_v3(
                    None, condition_fn, log, workdir, stages)
 
 
+@fp32_math()
 def run_v4(
     train_dataset: Dataset,
     train_audio: Mapping[str, np.ndarray],
@@ -503,6 +644,7 @@ def run_v4(
                    None, condition_fn, log, workdir, stages)
 
 
+@fp32_math()
 def run_v5(
     train_dataset: Dataset,
     train_audio: Mapping[str, np.ndarray],

@@ -7,6 +7,8 @@ Port of `sepi_tpu/recipes/phonetic.py`, stage for stage with the Kaldi scripts:
   train_multitask_model  = train_cvector.sh -> train_cvector_dnn.py
   train_adapted_model    = train_xvector_with_am.sh (graft + lr x0.2)
   train_combined_model   = train_cvector_with_am.sh (graft + multitask)
+  pseudo_senone_alignments = an explicit test and smoke helper, never a
+                           driver default: GMM-clustered frame labels
 
 Alignments obey the select-voiced-ali invariant: label streams are
 frame-aligned with the (silence-stripped) feature streams, as
@@ -15,7 +17,6 @@ frame-aligned with the (silence-stripped) feature streams, as
 eval mode and calibrated batch-norm statistics.  The samplers draw in the
 reference's order (held-out batches, a probe batch, calibration batches,
 then training), so both packages train on the same batches.
-(`pseudo_senone_alignments` needs the classical GMM and is not ported.)
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 from ..config import TrainConfig
 from ..data.manifest import Dataset
 from ..data.sampler import ChunkSampler, FrameSampler, MultitaskInterleaver
-from ..device import DeviceLike
+from ..device import DeviceLike, fp32_math, resolve_device
 from ..models import (
     AdaptedConfig,
     AdaptedXVector,
@@ -51,6 +52,35 @@ from .pipeline import (
 )
 
 BOTH_TASKS = {"am": {"task": "am"}, "xvec": {"task": "xvec"}}
+
+
+def pseudo_senone_alignments(features: Mapping[str, np.ndarray], num_senones: int = 32,
+                             seed: int = 0, device: DeviceLike = "cuda") -> Dict[str, np.ndarray]:
+    """Frame labels from a diag GMM over all frames (argmax of the
+    component log-likelihoods): a consistent, learnable phone-like
+    labelling for tests and smoke runs without transcripts.  Not phonetic
+    and never a driver default; the real providers are caller-supplied
+    alignments or `recipes.s5.run_s5`."""
+    import torch
+
+    from ..classical.gmm import _mstep_diag, accumulate_stats, init_diag_from_frames
+    from ..config import UbmConfig
+
+    dev = resolve_device(device)
+    all_frames = np.concatenate(list(features.values()))
+    cfg = UbmConfig(num_gauss=num_senones, num_gselect=num_senones)
+    gmm = init_diag_from_frames(all_frames[::5], num_senones, seed, dev)
+    var_floor = float(np.var(all_frames, axis=0).mean()) * 1e-4 + 1e-6
+    x = torch.as_tensor(np.asarray(all_frames[::5], np.float32), device=dev)
+    for _ in range(4):
+        stats = accumulate_stats(gmm, x, num_gselect=num_senones)
+        gmm = _mstep_diag(stats, cfg, var_floor)
+    out = {}
+    with torch.no_grad():
+        for utt, f in features.items():
+            ll = gmm.log_likes(torch.as_tensor(np.asarray(f, np.float32), device=dev))
+            out[utt] = torch.argmax(ll, dim=1).cpu().numpy().astype(np.int32)
+    return out
 
 
 def _train(state, steps: Dict, batch_iter, num_steps: int, calib_feats, train_cfg: TrainConfig,
@@ -88,6 +118,7 @@ def _train(state, steps: Dict, batch_iter, num_steps: int, calib_feats, train_cf
     return finalize_batch_stats(state, calib_feats, model_kwargs=model_kwargs)
 
 
+@fp32_math()
 def train_am_model(
     features: Mapping[str, np.ndarray],
     alignments: Mapping[str, np.ndarray],
@@ -206,6 +237,7 @@ def _two_task_run(model, features, alignments, dataset: Dataset, train_cfg: Trai
     return state.model, state
 
 
+@fp32_math()
 def train_multitask_model(
     features: Mapping[str, np.ndarray],
     alignments: Mapping[str, np.ndarray],
@@ -226,6 +258,7 @@ def train_multitask_model(
                          num_heldout_utts)
 
 
+@fp32_math()
 def train_adapted_model(
     features: Mapping[str, np.ndarray],
     dataset: Dataset,
@@ -266,6 +299,7 @@ def train_adapted_model(
     return state.model, state
 
 
+@fp32_math()
 def train_combined_model(
     features: Mapping[str, np.ndarray],
     alignments: Mapping[str, np.ndarray],

@@ -39,7 +39,7 @@ from ..config import (
 )
 from ..data.manifest import Dataset, Trial
 from ..data.sampler import ChunkSampler
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, fp32_math, resolve_device
 from ..extract import EmbeddingExtractor
 from ..metrics.det import EvalResult, evaluate_scores, split_scores_by_trials
 from ..models import XVector, XVectorConfig
@@ -98,6 +98,26 @@ def _frontend_batches(
     """
     dither_on = fe.cfg.dither != 0.0
     salt = int(key) if (key is not None and dither_on) else 0
+    for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid):
+        seeds = utt_seeds(names, base_seed=salt) if dither_on else None
+        feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
+        voiced = energy_vad(feats[..., 0], mask, vad)
+        if transform is not None:
+            feats = transform(feats, mask)
+        normed = sliding_cmvn(feats, mask, cmvn)
+        yield (
+            names,
+            normed.cpu().numpy(),
+            voiced.cpu().numpy(),
+            mask.sum(-1).cpu().numpy(),
+        )
+
+
+def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
+                         pad_grid: int = 4000):
+    """Length-sorted batches of ``batch_size`` utterances, zero-padded to a
+    `_shape_bucket` of ``pad_grid`` samples: yields (utt_ids, samples (B, N)
+    float32, lengths (B,) int32) on the host."""
     if hasattr(audio, "num_samples"):
         ids = sorted(audio, key=lambda u: (audio.num_samples(u), u))
     else:
@@ -110,18 +130,7 @@ def _frontend_batches(
         for b, (_, x) in enumerate(chunk):
             samples[b, :len(x)] = x
             lengths[b] = len(x)
-        seeds = utt_seeds([u for u, _ in chunk], base_seed=salt) if dither_on else None
-        feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
-        voiced = energy_vad(feats[..., 0], mask, vad)
-        if transform is not None:
-            feats = transform(feats, mask)
-        normed = sliding_cmvn(feats, mask, cmvn)
-        yield (
-            [u for u, _ in chunk],
-            normed.cpu().numpy(),
-            voiced.cpu().numpy(),
-            mask.sum(-1).cpu().numpy(),
-        )
+        yield [u for u, _ in chunk], samples, lengths
 
 
 def iter_features_nosil(
@@ -311,6 +320,7 @@ def training_device(train_cfg: TrainConfig, mesh, device: DeviceLike) -> torch.d
     return resolve_device(device)
 
 
+@fp32_math()
 def train_xvector_model(
     features: Mapping[str, np.ndarray],
     dataset: Dataset,
@@ -409,6 +419,7 @@ def train_xvector_model(
     return state.model, state, label_map
 
 
+@fp32_math()
 def extract_and_score(
     model: torch.nn.Module,
     state,

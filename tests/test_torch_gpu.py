@@ -401,3 +401,45 @@ def test_frozen_graft_stays_frozen_on_the_card(cuda):
     src = source.state_dict()
     for n, p in st.model.am.named_parameters():
         assert torch.equal(p.cpu(), src[n]), n
+
+
+def test_entry_points_hold_fp32_under_tf32_flags(cuda):
+    """With TF32 turned on for matmuls and cuDNN (cuDNN's is PyTorch's
+    default), `nnet2_posteriors` (cuDNN convolutions) and
+    `train_v1_frontend` (GEMMs, Cholesky) still compute in float32: their
+    results hold against the CPU's, and the caller's flags come back."""
+    import copy
+
+    from sepi_tpu_torch.config import IvectorConfig, UbmConfig
+    from sepi_tpu_torch.models import Nnet2Config, Nnet2Multisplice, lecun_normal_init
+    from sepi_tpu_torch.recipes import nnet2_posteriors, train_v1_frontend
+
+    rng = np.random.default_rng(0)
+    hires = {f"u{i}": rng.normal(size=(90 + 7 * i, 40)).astype(np.float32) for i in range(6)}
+    centers = rng.normal(size=(4, 12)) * 3.0
+    sid = {f"u{i}": (centers[rng.integers(0, 4, 150)] + rng.normal(size=(150, 12))).astype(
+        np.float32) for i in range(12)}
+    model = Nnet2Multisplice(Nnet2Config(num_senones=300))
+    lecun_normal_init(model, 0)
+    model_cpu = copy.deepcopy(model)
+    # two T-matrix iterations, as the CPU parity tests: T is determined only up
+    # to near-flat directions of the likelihood, and five iterations carried
+    # the card-CPU gap to 1.04e-3 here
+    ubm_cfg, iv_cfg = UbmConfig(num_gauss=8), IvectorConfig(ivector_dim=6, num_iters=2)
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        post = nnet2_posteriors(model, None, hires, device="cuda")
+        ubm, ext = train_v1_frontend(sid, ubm_cfg, iv_cfg, device="cuda")
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (
+            True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    post_c = nnet2_posteriors(model_cpu, None, hires, device="cpu")
+    ubm_c, ext_c = train_v1_frontend(sid, ubm_cfg, iv_cfg, device="cpu")
+    # log-posteriors: float32 logits agree to ~1e-6, TF32 products move them ~1e-3
+    for u in hires:
+        assert np.abs(np.log(post[u]) - np.log(post_c[u])).max() <= 1e-4
+    for a, b in ((ubm.means, ubm_c.means), (ubm.covars, ubm_c.covars), (ext.t, ext_c.t)):
+        a = a.cpu()
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-3

@@ -38,8 +38,12 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
-print(len(names), leaked)
+print(len(names), leaked, ",".join(names))
 """
+
+# the v1 slice's modules, each imported by the probe above
+V1_MODULES = ("classical", "classical.gmm", "classical.ivector", "models.nnet2",
+              "recipes.ivector_recipe", "recipes.nnet2_recipe", "ops.deltas")
 
 
 def _env():
@@ -54,8 +58,9 @@ def test_imports_with_jax_blocked():
         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.strip().split(" ", 1)
+    n, leaked, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and leaked == "[]", out.stdout
+    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES) <= set(names.split(","))
 
 
 def test_no_import_statement_names_the_reference():
@@ -93,7 +98,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         extract_and_score(XVector(V2_XVECTOR), None, {"u": np.zeros((50, 23), np.float32)})
 
 
-@pytest.mark.parametrize("driver", ["run_v2", "run_v3", "run_v4", "run_v5"])
+@pytest.mark.parametrize("driver", ["run_v1", "run_v2", "run_v3", "run_v4", "run_v5"])
 def test_drivers_refuse_cpu_fallback(monkeypatch, tmp_path, driver):
     """A recipe driver called without device= raises with no usable GPU,
     before it writes anything; so does the augmentation it runs."""
@@ -115,23 +120,47 @@ def test_drivers_refuse_cpu_fallback(monkeypatch, tmp_path, driver):
         reverberate(audio["s-u"], np.ones(4, np.float32))
 
 
-_CLASSICAL_PROBE = r"""
-import sys
-sys.path.insert(0, {root!r})
-import sepi_tpu_torch.recipes.drivers
-bad = sorted(k for k in sys.modules if "classical" in k or "ivector" in k or "nnet2" in k)
-print(bad)
-"""
-
-
 def test_drivers_import_no_classical_module():
+    """The classical stack (GMM, i-vector, nnet2) is imported by `run_v1`
+    alone: no module-level import of drivers.py names it, and run_v1's
+    body does."""
     tree = ast.parse((ROOT / "sepi_tpu_torch" / "recipes" / "drivers.py").read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom):
-            assert "classical" not in (node.module or "") and "ivector" not in (node.module or "")
-    out = subprocess.run([sys.executable, "-c", _CLASSICAL_PROBE.format(root=str(ROOT))],
-                         cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and out.stdout.strip() == "[]", out.stdout + out.stderr
+
+    def classical_imports(nodes):
+        return [n.module for n in nodes if isinstance(n, ast.ImportFrom) and any(
+            k in (n.module or "") for k in ("classical", "ivector", "nnet2"))]
+
+    assert classical_imports(tree.body) == []
+    run_v1 = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "run_v1")
+    assert len(classical_imports(ast.walk(run_v1))) >= 3
+    others = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name != "run_v1"]
+    assert all(classical_imports(ast.walk(f)) == [] for f in others)
+
+
+def test_v1_entry_points_refuse_cpu_fallback(monkeypatch):
+    """The v1 slice's entry points raise with no usable GPU unless the
+    caller names the CPU."""
+    from sepi_tpu_torch.classical import train_diag_ubm
+    from sepi_tpu_torch.recipes import (nnet2_posteriors, prepare_features_ivector,
+                                        prepare_paired_features, pseudo_senone_alignments,
+                                        train_nnet2_am, train_v1_frontend)
+    from sepi_tpu_torch.models import Nnet2Config, Nnet2Multisplice
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    audio = {"u": np.zeros(8000, np.float32)}
+    feats = {"u": np.zeros((40, 6), np.float32)}
+    calls = [
+        lambda: train_diag_ubm(feats["u"]),
+        lambda: prepare_features_ivector(audio),
+        lambda: prepare_paired_features(audio),
+        lambda: pseudo_senone_alignments(feats, 4),
+        lambda: train_v1_frontend(feats),
+        lambda: train_nnet2_am(feats, {"u": np.zeros(40, np.int32)}),
+        lambda: nnet2_posteriors(Nnet2Multisplice(Nnet2Config(feat_dim=6)), None, feats),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_chip_smoke_refuses_without_a_gpu():
