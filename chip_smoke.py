@@ -80,6 +80,19 @@ non-zero:
      posterior of 16 utterances, and train_v1_frontend (K=64, M=32) and
      nnet2_posteriors with TF32 turned on. Every MFCC batch of 10a/10b
      (C = 20 and hires C = 40) is held against the plain version.
+ 11. bf16 compute and the on-device backend: a. bf16 step times at the
+     reference bench's shapes (the V2 step and K=16 superstep, the v5
+     am and xvec steps) beside 7a/8a's float32 ones, with top kernels,
+     idle share and peak memory; b. the full-width V2 x-vector in bf16 on
+     the card against the CPU (one forward, 3 momentum-SGD steps) within
+     limits set from bf16's unit roundoff; c. run_v2 with
+     TrainConfig(compute_dtype="bfloat16") on phase 9's corpus and
+     settings, its unseen-speaker EER below the initial weights' and
+     every MFCC batch held against the plain version; d. the device PLDA
+     trial matrix at bench.py's 4096 x 4096 x 150 against float64, LDA and
+     PLDA training and backend_eval(device_scoring=True) on phase 9's
+     embeddings against the host, and streaming_embed on a 60,000-frame
+     stream against whole-utterance pooling.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -750,13 +763,14 @@ def phase_s5(env, device="cuda", num_speakers=16, utts_per_speaker=8,
     return out
 
 
-def _train_state(model_cfg, device, opt_cfg=None, seed=0, total_steps=1000):
-    """A seeded (Flax-style) x-vector and its optimizer chain on ``device``."""
+def _train_state(model_cfg, device, opt_cfg=None, seed=0, total_steps=1000, dtype="float32"):
+    """A seeded (Flax-style) x-vector computing in ``dtype`` and its
+    optimizer chain on ``device``."""
     from sepi_tpu_torch.config import OptimizerConfig
     from sepi_tpu_torch.models import XVector, lecun_normal_init
     from sepi_tpu_torch.train import TrainState, build_optimizer
 
-    model = XVector(model_cfg)
+    model = XVector(model_cfg, dtype=dtype)
     lecun_normal_init(model, seed)
     model.to(device)
     chain, _ = build_optimizer(opt_cfg or OptimizerConfig(), total_steps)
@@ -1082,32 +1096,35 @@ CV_AM_STEPS, CV_STEPS = 200, 300
 CV_UNSEEN = 50  # unseen speakers x 2 utterances scored beside the in-domain trials
 
 
-def _cvector(kind, num_speakers, num_senones=CV_SENONES):
-    """A full-width phonetic model, its optimizer's subtree factors and the
-    task kwargs of its two steps."""
+def _cvector(kind, num_speakers, num_senones=CV_SENONES, dtype="float32"):
+    """A full-width phonetic model computing in ``dtype`` and its
+    optimizer's subtree factors."""
     from sepi_tpu_torch.models import cvector as cv
 
     am = cv.AmConfig(num_senones=num_senones)
     if kind == "am":
-        return cv.AmNet(am), None
+        return cv.AmNet(am, dtype=dtype), None
     if kind == "v3":
         return cv.MultitaskCVector(cv.MultitaskConfig(num_speakers=num_speakers,
-                                                      num_senones=num_senones)), None
+                                                      num_senones=num_senones),
+                                   dtype=dtype), None
     if kind == "v4":
-        return cv.AdaptedXVector(cv.AdaptedConfig(num_speakers=num_speakers, am=am)), {"am": 0.2}
+        return (cv.AdaptedXVector(cv.AdaptedConfig(num_speakers=num_speakers, am=am), dtype=dtype),
+                {"am": 0.2})
     return cv.CombinedCVector(cv.CombinedConfig(num_speakers=num_speakers,
-                                                num_senones=num_senones, am=am)), {"am": 0.1}
+                                                num_senones=num_senones, am=am),
+                              dtype=dtype), {"am": 0.1}
 
 
 def _cvector_state(kind, device, num_speakers, opt_cfg=None, seed=0, lr_factors=None,
-                   graft_from=None):
-    """A seeded (Flax-style) phonetic model on ``device``, the AM grafted
-    for v4/v5, and its optimizer chain."""
+                   graft_from=None, dtype="float32"):
+    """A seeded (Flax-style) phonetic model computing in ``dtype`` on
+    ``device``, the AM grafted for v4/v5, and its optimizer chain."""
     from sepi_tpu_torch.config import OptimizerConfig
     from sepi_tpu_torch.models import lecun_normal_init
     from sepi_tpu_torch.train import TrainState, build_optimizer, graft_subtree
 
-    model, factors = _cvector(kind, num_speakers)
+    model, factors = _cvector(kind, num_speakers, dtype=dtype)
     lecun_normal_init(model, seed)
     if graft_from is not None:
         graft_subtree(model, graft_from, "am")
@@ -1473,6 +1490,26 @@ def corpus_v2(train=P9_TRAIN, evaluation=P9_EVAL, adapt=P9_ADAPT):
     return {"train": trn, "eval": evl, "adapt": adp, "enroll": enroll, "trials": trials}
 
 
+def _p9_augments(trn):
+    """Phase 9's augmentation of the training corpus (two synthetic RIRs,
+    seeded noise, music and babble), for run_v2 in phases 9 and 11c."""
+    import numpy as np
+
+    from sepi_tpu_torch.data.augment import synthetic_rir
+    from sepi_tpu_torch.recipes import drivers
+
+    rng = np.random.default_rng(9)
+    return drivers.AugmentOptions(
+        rirs=[synthetic_rir(seed=3), synthetic_rir(rt60=0.5, seed=4)],
+        noises={"noise": [(rng.standard_normal(16000) * 800).astype(np.float32)
+                          for _ in range(4)],
+                "music": [(rng.standard_normal(24000) * 600).astype(np.float32)
+                          for _ in range(4)],
+                "babble": [(rng.standard_normal(12000) * 1500).astype(np.float32)
+                           for _ in range(8)]},
+        subset=len(trn.dataset), seed=1)
+
+
 class _Tee:
     """stdout that is also kept, to read the drivers' stage lines back."""
 
@@ -1489,14 +1526,17 @@ class _Tee:
 
 def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, adapt=P9_ADAPT,
                       v2_steps=P9_V2_STEPS, num_steps=P9_STEPS, am_steps=P9_AM_STEPS,
-                      train_cfg=None, configs=None, align_cfg=None):
+                      train_cfg=None, configs=None, align_cfg=None, workdir=None,
+                      keep_s5=False):
     """Phase 9: the recipe drivers run_v2 (augmentation and PLDA
     adaptation) and run_v3/v4/v5 (the s5 stage inside run_v3, cached for
     v4 and v5) on corpus-v2 audio, each system beside the same model at
     its initial weights on unseen speakers; the drivers' Kaldi-format
     files read back equal to what the run held.  ``configs`` maps a
     driver to narrow model configs for a CPU rehearsal; None keeps each
-    driver's default widths."""
+    driver's default widths.  ``workdir`` (default build/smoke_drivers) is
+    emptied first and removed after; with ``keep_s5``, v3's s5 and feature
+    stage files move to ``<workdir>_s5`` for phase 11c, which removes it."""
     import contextlib
     import glob
     import shutil
@@ -1506,7 +1546,6 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     from sepi_tpu_torch.align import mono, viterbi_cuda
     from sepi_tpu_torch.config import AlignConfig, BackendConfig, TrainConfig
     from sepi_tpu_torch.data import augment
-    from sepi_tpu_torch.data.augment import synthetic_rir
     from sepi_tpu_torch.metrics.det import compute_det, split_scores_by_trials
     from sepi_tpu_torch.models import lecun_normal_init
     from sepi_tpu_torch.ops import mfcc_cuda
@@ -1516,22 +1555,13 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     train_cfg = train_cfg or TrainConfig()
     align_cfg = align_cfg or AlignConfig()
     configs = configs or {}
-    root = os.path.join(ROOT, "build", "smoke_drivers")
+    root = workdir or os.path.join(ROOT, "build", "smoke_drivers")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     corpus = corpus_v2(train, evaluation, adapt)
     trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
     enroll, trials = corpus["enroll"], corpus["trials"]
-    rng = np.random.default_rng(9)
-    augments = drivers.AugmentOptions(
-        rirs=[synthetic_rir(seed=3), synthetic_rir(rt60=0.5, seed=4)],
-        noises={"noise": [(rng.standard_normal(16000) * 800).astype(np.float32)
-                          for _ in range(4)],
-                "music": [(rng.standard_normal(24000) * 600).astype(np.float32)
-                          for _ in range(4)],
-                "babble": [(rng.standard_normal(12000) * 1500).astype(np.float32)
-                           for _ in range(8)]},
-        subset=len(trn.dataset), seed=1)
+    augments = _p9_augments(trn)
     corpus_secs = time.perf_counter() - t0
 
     def wd(name):
@@ -1703,13 +1733,22 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
         f"xvector.scp, backend/{{mean.vec,transform.mat,plda}} and det_pooled.{{txt,svg}} "
         f"read back equal (initial weights: each model's initialisation from the trainer's "
         f"seed, no AM graft); wall s: " + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    stage = root + "_s5"
+    shutil.rmtree(stage, ignore_errors=True)
+    if keep_s5:
+        os.makedirs(stage)
+        for f in glob.glob(wd("v3") + "/s5_feats_ali-*") + glob.glob(wd("v3") + "/feats_*"):
+            shutil.move(f, stage)
     shutil.rmtree(root, ignore_errors=True)
     if problems:
         raise AssertionError("phase 9: " + "; ".join(problems))
     return {"launches": launches, "mfcc_err": mfcc_err, "viterbi_err": viterbi_err,
             "viterbi_shapes": viterbi_shapes, "eer": {k: r.eer for k, r in res.items()},
             "eer_initial": {k: r.eer for k, r in initial.items()},
-            "corpus": corpus}
+            "corpus": corpus, "v2_model": calls["v2"]["extract"][0][0],
+            "v2_backend": calls["v2"]["backend"],
+            "v3_run": dict(args=(trn.dataset, trn.audio, evl.audio, trials, enroll),
+                           kw=dict(configs.get("v3", {}), **phonetic), stage=stage)}
 
 
 P10_SENONES, P10_NNET2_STEPS = 4000, 300  # Nnet2Config() senones; the reference's default steps
@@ -2076,6 +2115,428 @@ def phase_v1_agreement(env, v1, dnn, device="cuda", frames=4096, utts=16, small_
     if problems:
         raise AssertionError("phase 10c: " + "; ".join(problems))
 
+# 11: bf16 compute and the on-device backend.  bf16 keeps 8 bits of
+# mantissa: unit roundoff u = 2^-8.  The card and the CPU round the same
+# bf16 products at different places (cuDNN's and oneDNN's accumulation
+# order, a fused bias), so an entry may differ by an ulp and the difference
+# carries through the layers above.
+BF16_U = 2.0 ** -8
+BF16_OUT_TOL = 4 * BF16_U  # 11b: max |card - CPU| of the embedding / logits over the CPU's max
+# 11b's parameter gate: ||p_card - p_cpu|| / ||p_cpu - p_init|| after 3
+# momentum-SGD steps, the proportional shrink off so that the change is the
+# gradients' alone.  bf16 moves a weight gradient far more than u: at the
+# random initialisation it is a sum that mostly cancels, and two correct bf16
+# runs (cuDNN's and oneDNN's) part by 7e-2 of the update at 16 chunks of 5000
+# speakers (tools/bf16_probe.py).  Batches of 256 chunks from 16 speakers add
+# up coherent gradients, so the rounding falls to a few percent of them.  The
+# limit sits between that reading and a planted card fault's, the card's
+# gradients scaled by 0.9, which 11b runs too and must read above it.
+BF16_TRAJ_TOL = 16 * BF16_U
+P11B_BATCH, P11B_SPEAKERS, P11B_FAULT = 256, 16, 0.9
+P11_BUDGET_S = 60.0  # phase 11's wall, reported against this budget
+PLDA_DIM, PLDA_MODELS, PLDA_TESTS = 150, 4096, 4096  # bench.py:246-267
+PLDA_RTOL = 1e-3  # tests/test_backend_device.py:50: atol 1e-3 x scale, rtol 1e-3
+STREAM_FRAMES, STREAM_CHUNK = 60000, 10000  # a 10-minute stream
+STREAM_TOL = 2e-3  # tests/test_e2e.py:117-138
+
+
+def _rate(frames, ms) -> float:
+    return frames * 0.01 / (ms / 1e3)
+
+
+def phase_bf16_steps(env, fp32_v2, fp32_cv, device="cuda"):
+    """11a: bf16 step times at the reference bench's shapes, beside the
+    same run's float32 ones (phases 7a and 8a)."""
+    import torch
+
+    from sepi_tpu_torch.models import V2_XVECTOR, compute_dtype
+    from sepi_tpu_torch.train import make_superstep, make_xvec_step
+
+    g = torch.Generator(device=device).manual_seed(0)
+    out, lines = {}, []
+
+    def measure(name, fn, frames, per_call, iters, warmup, fp32_ms):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(fn, iters=iters, warmup=warmup) / per_call
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        top, busy_ms, wall_ms = _profile_steps(fn, n=1 if per_call > 1 else 3, top=5)
+        idle = 1 - busy_ms / wall_ms
+        out[name] = {"ms": ms, "fp32_ms": fp32_ms, "audio_s_per_s": _rate(frames, ms),
+                     "idle": idle, "peak_gb": peak_gb}
+        lines.append(f"{name} {ms:.3f} ms ({_rate(frames, ms):.1f} audio-s/s; fp32 "
+                     f"{fp32_ms:.3f} ms, {fp32_ms / ms:.2f}x), idle {100 * idle:.1f}%, peak "
+                     f"{peak_gb:.2f} GB")
+        log(f"  11a {name} torch.profiler: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+            f"wall; top kernels (ms, calls): "
+            + "; ".join(f"{n} {t:.3f} ({c})" for n, t, c in top))
+
+    cfg = dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    chain, state = _train_state(cfg, device, dtype="bfloat16")
+    step, sstep = make_xvec_step(chain), make_superstep(chain)
+    feats = torch.randn((TRAIN_K, TRAIN_B, TRAIN_T, cfg.feat_dim), generator=g, device=device)
+    labels = torch.randint(0, cfg.num_speakers, (TRAIN_K, TRAIN_B), generator=g, device=device,
+                           dtype=torch.int32)
+    ones = torch.ones(TRAIN_K, device=device)
+    frames = TRAIN_B * TRAIN_T
+    measure("V2 step", lambda: step(state, feats[0], labels[0], 1.0), frames, 1, 20, 3,
+            fp32_v2["single_ms"])
+    measure(f"V2 K={TRAIN_K} superstep", lambda: sstep(state, feats, labels, ones), frames,
+            TRAIN_K, 3, 1, fp32_v2["super_ms"])
+    m = step(state, feats[1], labels[1], 1.0)
+    bad = [k for k, v in m.items() if not bool(torch.isfinite(v))]
+    if compute_dtype(state.model) != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in state.model.parameters()) or bad:
+        raise AssertionError(f"11a V2: non-finite {bad} or parameters not float32")
+    del state, chain, feats
+
+    chain, state = _cvector_state("v5", device, CV_SPEAKERS, dtype="bfloat16")
+    steps = _cv_steps("v5", chain)
+    for task, b, t in (("am", AM_B, AM_L + 14), ("xvec", TRAIN_B, TRAIN_T)):
+        n_cls, lab_shape = (CV_SENONES, (b, AM_L)) if task == "am" else (CV_SPEAKERS, (b,))
+        f = torch.randn((b, t, 23), generator=g, device=device)
+        lab = torch.randint(0, n_cls, lab_shape, generator=g, device=device, dtype=torch.int32)
+        st = steps[task]
+        measure(f"v5 {task}", lambda: st(state, f, lab, 1.0),
+                b * (AM_L if task == "am" else t), 1, 20, 3, fp32_cv[f"v5 {task}"]["ms"])
+        m = st(state, f, lab, 1.0)
+        if not all(bool(torch.isfinite(v)) for v in m.values()):
+            raise AssertionError(f"11a v5 {task}: non-finite metrics {m}")
+    del state, chain
+    log(f"phase 11a bf16 steps on {env['smi']}: full-size V2 x-vector ({CV_SPEAKERS} speakers, "
+        f"{TRAIN_B} x {TRAIN_T} x 23) and v5 CombinedConfig() ({CV_SPEAKERS} speakers, "
+        f"{CV_SENONES} senones; am {AM_B} x {AM_L} label frames, xvec {TRAIN_B} x {TRAIN_T}), "
+        f"compute_dtype bfloat16 (parameters, batch norm and logits float32), "
+        f"OptimizerConfig() (muon), CUDA-event medians (single steps of 20, supersteps of 3; "
+        f"fp32 from 7a/8a of this run): " + "; ".join(lines))
+    return out
+
+
+def p11b_batches(cfg, batch=P11B_BATCH, speakers=P11B_SPEAKERS):
+    """11b's three batches of ``batch`` chunks, labels drawn from
+    ``speakers`` speakers (0, or more than the model has: from all)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    pool = (rng.choice(cfg.num_speakers, size=speakers, replace=False)
+            if 0 < speakers < cfg.num_speakers else None)
+    out = []
+    for _ in range(3):
+        labels = (rng.integers(0, cfg.num_speakers, size=batch) if pool is None
+                  else rng.choice(pool, size=batch)).astype(np.int32)
+        offsets = rng.normal(size=(cfg.num_speakers // 100 + 1, cfg.feat_dim)) * 1.5
+        feats = rng.normal(size=(batch, TRAIN_T, cfg.feat_dim)) + offsets[labels // 100][:, None]
+        out.append((torch.from_numpy(feats.astype(np.float32)), torch.from_numpy(labels)))
+    return out
+
+
+def p11b_run(cfg, device, dtype, batches, weight=1.0, hold=None, shrink=0.0):
+    """3 momentum-SGD steps of a seeded x-vector on ``batches``; ``weight``
+    scales every gradient (1.0: none), ``hold`` names a parameter put back
+    after each step.  Returns the state and the initial parameters."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import make_xvec_step
+
+    opt = OptimizerConfig(preconditioner="none", proportional_shrink=shrink)
+    chain, st = _train_state(cfg, device, opt, seed=3, dtype=dtype)
+    p0 = _flat(st.model)
+    step, objf = make_xvec_step(chain), []
+    for f, lab in batches:
+        param = dict(st.model.named_parameters()).get(hold)
+        kept = None if param is None else param.detach().clone()
+        objf.append(round(float(step(st, f.to(device), lab.to(device), weight)["objf"]), 5))
+        if param is not None:
+            param.data.copy_(kept)
+    return st, p0, objf
+
+
+def phase_bf16_agreement(env, device="cuda", batch=P11B_BATCH, model_cfg=None):
+    """11b: the full-width V2 x-vector (``model_cfg`` narrows it for a CPU
+    rehearsal) in bf16 on the card and on the CPU from the same weights
+    and batches: one eval-mode forward, then 3 momentum-SGD steps, and the
+    same steps on the card with a planted fault (gradients x 0.9)."""
+    import torch
+
+    from sepi_tpu_torch.models import V2_XVECTOR
+
+    cfg = model_cfg or dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    batches = p11b_batches(cfg, batch)
+    t0 = time.perf_counter()
+    with torch.no_grad():  # the forward from the initial weights
+        od = _train_state(cfg, device, seed=3, dtype="bfloat16")[1].model.eval()(
+            batches[0][0].to(device))
+        oc = _train_state(cfg, "cpu", seed=3, dtype="bfloat16")[1].model.eval()(batches[0][0])
+    sd, p0, objf_d = p11b_run(cfg, device, "bfloat16", batches)
+    sc, _, objf_c = p11b_run(cfg, "cpu", "bfloat16", batches)
+    sf = p11b_run(cfg, device, "bfloat16", batches, weight=P11B_FAULT)[0]
+    errs = {}
+    for key in ("embedding_a", "logits"):
+        if od[key].dtype != oc[key].dtype:
+            raise AssertionError(f"11b {key}: card {od[key].dtype}, CPU {oc[key].dtype}")
+        c = oc[key].float()
+        errs[key] = float((od[key].float().cpu() - c).abs().max() / c.abs().max())
+    pc = _flat(sc.model)
+    errs["parameters"] = _traj(_flat(sd.model), pc, p0)
+    errs["fault"] = _traj(_flat(sf.model), pc, p0)
+    secs = time.perf_counter() - t0
+    ok = (errs["embedding_a"] <= BF16_OUT_TOL and errs["logits"] <= BF16_OUT_TOL
+          and errs["parameters"] <= BF16_TRAJ_TOL < errs["fault"]
+          and all(p.dtype == torch.float32 for p in sd.model.parameters()))
+    msg = (f"embedding_a (bf16) {errs['embedding_a']:.3e}, logits (float32) "
+           f"{errs['logits']:.3e} of the CPU's max (limit {BF16_OUT_TOL:.4e} = 4 u, u = 2^-8); "
+           f"after 3 momentum-SGD steps (shrink off) ||p_card - p_cpu|| / ||p_cpu - p_init|| "
+           f"{errs['parameters']:.3e} (limit {BF16_TRAJ_TOL:.4e} = 16 u), the planted fault "
+           f"(card gradients x {P11B_FAULT}) {errs['fault']:.3e} (must exceed the limit); "
+           f"objf card {objf_d}, CPU {objf_c}")
+    log(f"phase 11b bf16 card vs CPU on {env['smi'] if env else device}: "
+        f"{'full-width V2' if model_cfg is None else 'narrow'} x-vector ({cfg.num_speakers} "
+        f"speakers), {batch} x {TRAIN_T} x 23 from {P11B_SPEAKERS} speakers, seed 3: {msg}; "
+        f"{secs:.1f} s")
+    if not ok:
+        raise AssertionError(f"phase 11b: card and CPU disagree in bf16: {msg}")
+    return errs
+
+
+def phase_bf16_driver(env, drv, device="cuda", v2_steps=P9_V2_STEPS, train_cfg=None,
+                      configs=None, workdir=None):
+    """11c: run_v2 with phase 9's TrainConfig in bf16 (``compute_dtype=
+    "bfloat16"``) on phase 9's corpus v2 and settings; its unseen-speaker
+    EER beside phase 9's float32 one and below the initial weights'
+    (phase 9's gate).  Then run_v3 in bf16 with phase 9's settings from
+    phase 9's s5 stage files (``keep_s5``; the Viterbi kernel does not run
+    again), its EER below its initial weights'.  ``train_cfg`` and
+    ``configs`` (run_v2's model_cfg) are phase 9's for a CPU rehearsal;
+    ``workdir`` (default build/smoke_bf16) is emptied first and removed
+    after."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    import torch
+
+    from sepi_tpu_torch.config import BackendConfig, TrainConfig
+    from sepi_tpu_torch.models import compute_dtype
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.recipes import drivers, pipeline
+
+    corpus = drv["corpus"]
+    trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
+    wd = os.path.join(workdir or os.path.join(ROOT, "build", "smoke_bf16"), "v2")
+    shutil.rmtree(os.path.dirname(wd), ignore_errors=True)
+    dtypes = []
+    orig_x = pipeline.extract_and_score
+
+    def cap_x(model, *args, **kw):
+        dtypes.append(compute_dtype(model))
+        return orig_x(model, *args, **kw)
+
+    problems = []
+    bf16 = (train_cfg or TrainConfig()).replace(compute_dtype="bfloat16")
+    v3 = drv["v3_run"]
+    wd3 = os.path.join(os.path.dirname(wd), "v3")
+    os.makedirs(wd3)
+    for f in glob.glob(v3["stage"] + "/*"):
+        shutil.copy(f, wd3)
+    text = io.StringIO()
+    pipeline.extract_and_score = cap_x
+    try:
+        mfcc_cuda.mfcc_fused.launches = 0
+        with contextlib.redirect_stdout(text), _MfccCapture() as cap:
+            t0 = time.perf_counter()
+            res = drivers.run_v2(
+                trn.dataset, trn.audio, evl.dataset, evl.audio, corpus["trials"],
+                corpus["enroll"], wd, num_steps=v2_steps, augments=_p9_augments(trn),
+                adapt_dataset=adp.dataset, adapt_audio=adp.audio,
+                backend_cfg=BackendConfig(**P9_ADAPT_BACKEND), train_cfg=bf16,
+                device=device, **(configs or {}))
+            wall = time.perf_counter() - t0
+            res3 = drivers.run_v3(*v3["args"], wd3, **dict(v3["kw"], train_cfg=bf16))
+            wall3 = time.perf_counter() - t0 - wall
+        launches = mfcc_cuda.mfcc_fused.launches
+    finally:
+        pipeline.extract_and_score = orig_x
+        shutil.rmtree(os.path.dirname(wd), ignore_errors=True)
+        shutil.rmtree(v3["stage"], ignore_errors=True)
+    out = text.getvalue()
+    if out.count("[s5_feats_ali] cached") != 1 or "[s5_feats_ali] running" in out:
+        problems.append("bf16 run_v3 did not load phase 9's s5 stage from its cache")
+    if device != "cpu" and launches <= 0:
+        problems.append("the bf16 driver path never launched the MFCC kernel")
+    n_mfcc = len(cap.batches)
+    mfcc_err = max(e for _, e in cap.check(problems, "bf16 driver batch").values())
+    if not dtypes or any(d != torch.bfloat16 for d in dtypes):
+        problems.append(f"extraction ran models of dtype {dtypes}, not bfloat16")
+    r = res.pooled
+    eer, eer32, eer0 = 100 * r.eer, 100 * drv["eer"]["v2"], 100 * drv["eer_initial"]["v2"]
+    if not r.eer < drv["eer_initial"]["v2"]:
+        problems.append(f"bf16 v2 unseen-speaker EER {eer:.3f}% not below the initial "
+                        f"weights' {eer0:.3f}%")
+    r3 = res3.pooled
+    eer3, eer3_32, eer3_0 = (100 * r3.eer, 100 * drv["eer"]["v3"],
+                             100 * drv["eer_initial"]["v3"])
+    if not r3.eer < drv["eer_initial"]["v3"]:
+        problems.append(f"bf16 v3 unseen-speaker EER {eer3:.3f}% not below the initial "
+                        f"weights' {eer3_0:.3f}%")
+    log(f"phase 11c run_v2 in bf16 on {env['smi'] if env else device}: phase 9's corpus v2 and "
+        f"settings ({v2_steps} steps, augmentation, mean-only PLDA adaptation), "
+        f"TrainConfig(compute_dtype='bfloat16'): unseen-speaker EER {eer:.3f}% minDCF08 "
+        f"{r.min_dcf08:.4f} (phase 9 float32 {eer32:.3f}%, initial weights {eer0:.3f}%; "
+        f"{r.num_target} target / {r.num_nontarget} nontarget) in {wall:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in res.seconds.items())
+        + f"); run_v3 in bf16 from phase 9's s5 stage: EER {eer3:.3f}% minDCF08 "
+        f"{r3.min_dcf08:.4f} (phase 9 float32 {eer3_32:.3f}%, initial weights {eer3_0:.3f}%) "
+        f"in {wall3:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in res3.seconds.items())
+        + f"); extraction dtypes {sorted({str(d) for d in dtypes})}; mfcc_fused launches "
+        f"{launches}, {n_mfcc} batches max abs err {mfcc_err:.3e} <= {TOL}")
+    if problems:
+        raise AssertionError("phase 11c: " + "; ".join(problems))
+    return {"launches": launches, "mfcc_err": mfcc_err, "eer": r.eer, "eer_v3": r3.eer,
+            "wall": wall, "wall_v3": wall3}
+
+
+def phase_device_backend(env, drv, device="cuda", dims=(PLDA_DIM, PLDA_MODELS, PLDA_TESTS),
+                         stream=(STREAM_FRAMES, STREAM_CHUNK)):
+    """11d: the on-device backend.  The trial matrix at the bench's shape
+    against float64; LDA and PLDA training on phase 9's embeddings against
+    the host's; backend_eval with device_scoring=True against phase 9's
+    host scoring; streaming_embed on a long stream against
+    whole-utterance pooling."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.backend import (Plda, compute_lda, compute_lda_device,
+                                        length_normalize, plda_score_matrix,
+                                        plda_score_matrix_device, subtract_global_mean,
+                                        train_plda, train_plda_device)
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import streaming_embed
+    from sepi_tpu_torch.recipes import backend_eval, extract_and_score
+
+    problems, parts = [], []
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    # the (M, N) trial matrix at bench.py's shape and synthetic PLDA
+    dim, n_models, n_tests = dims
+    rng = np.random.default_rng(0)
+    q = np.linalg.qr(rng.normal(size=(dim, dim)))[0]
+    plda = Plda(mean=rng.normal(size=dim), transform=q, psi=rng.uniform(0.1, 5.0, dim))
+    models = rng.normal(size=(n_models, dim)).astype(np.float32)
+    tests = rng.normal(size=(n_tests, dim)).astype(np.float32)
+    md, td = (torch.from_numpy(a).to(device) for a in (models, tests))
+    got = plda_score_matrix_device(plda, md, td, device=device).cpu().numpy()
+    t0 = time.perf_counter()
+    want = plda_score_matrix(plda, models, tests)
+    host_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    err = float(np.max(np.abs(got - want) - PLDA_RTOL * np.abs(want)) / scale)
+    if not err <= PLDA_RTOL:
+        problems.append(f"device trial matrix off float64 by {err:.3e} of the scale")
+    if device != "cpu":
+        ms = time_ms(lambda: plda_score_matrix_device(plda, md, td, device=device))
+        gflop = 2 * 2 * n_models * n_tests * dim / 1e9
+        mbytes = 4 * (n_models * dim + n_tests * dim + n_models * n_tests) / 1e6
+        bound = max(gflop * 1e9 / env["peak_flops"], mbytes * 1e6 / env["peak_bw"]) * 1e3
+        parts.append(f"plda_score_matrix_device {n_models} x {n_tests} x {dim}: {ms:.3f} ms "
+                     f"(median of 10, CUDA events), {n_models * n_tests / (ms / 1e3):.4e} "
+                     f"trials/s; bound {bound:.3f} ms (fp32 operations, {gflop:.2f} GFLOP; "
+                     f"bytes {mbytes:.1f} MB); float64 host plda_score_matrix {host_s:.3f} s; "
+                     f"|card - float64| - {PLDA_RTOL} |float64| at most {err:.3e} of the scale "
+                     f"{scale:.1f} (limit {PLDA_RTOL})")
+
+    # LDA and PLDA training on phase 9's v2 embeddings, as backend_eval feeds them
+    args, kw, (host_res, host_art) = drv["v2_backend"]
+    embs, train_ds, bcfg = args[0], args[1], args[4]
+    ids = [u for u in train_ds.utt_ids if u in embs]
+    x = np.stack([embs[u] for u in ids])
+    labels = [train_ds[u].spk_id for u in ids]
+    centered, _ = subtract_global_mean(x)
+    lda_dim = min(bcfg.lda_dim, x.shape[1] - 1, len(set(labels)) - 1)
+    # the leading directions, held row by row (later ones may be near-degenerate)
+    top = min(10, lda_dim)
+    t0 = time.perf_counter()
+    lda_h = compute_lda(centered, labels, top)
+    lda_host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lda_d = compute_lda_device(centered, labels, top, device=device)
+    lda_dev_s = time.perf_counter() - t0
+    cos = min(abs(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b))
+              for a, b in zip(lda_h.projection, lda_d.projection))
+    mean_err = float(np.abs(lda_d.mean - lda_h.mean).max())
+    if not (cos >= 1 - 1e-3 and mean_err <= 1e-4):
+        problems.append(f"compute_lda_device: row cosine {cos}, mean {mean_err}")
+    lda = compute_lda(centered, labels, lda_dim)
+    xp = length_normalize(lda(centered + lda.mean))
+    t0 = time.perf_counter()
+    plda_h = train_plda(xp, labels, bcfg.plda_iters)
+    plda_host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plda_d = train_plda_device(xp, labels, bcfg.plda_iters, device=device)
+    plda_dev_s = time.perf_counter() - t0
+    psi_err = float(np.max(np.abs(plda_d.psi - plda_h.psi) - 0.05 * np.abs(plda_h.psi)))
+    q = len(xp) // 4  # a quarter of the vectors as models, the rest as tests
+    s_h = plda_score_matrix(plda_h, xp[:q], xp[q:])
+    s_d = plda_score_matrix(plda_d, xp[:q], xp[q:])
+    s_err = float(np.max(np.abs(s_d - s_h) - 0.02 * np.abs(s_h)) / np.abs(s_h).max())
+    if not (psi_err <= 0.05 and s_err <= 0.02):
+        problems.append(f"train_plda_device: psi {psi_err}, scores {s_err}")
+    parts.append(
+        f"on phase 9's {len(ids)} v2 training embeddings ({len(set(labels))} speakers): "
+        f"compute_lda_device ({top} dims) rows cosine >= {cos:.6f} (limit 1 - 1e-3), mean "
+        f"{mean_err:.2e} (1e-4), {lda_dev_s:.3f} s on {device} against {lda_host_s:.3f} s "
+        f"float64 host; train_plda_device ({lda_dim} dims, {bcfg.plda_iters} iterations) psi "
+        f"|dev - host| - 0.05 |host| at most {psi_err:.3e} (0.05), trial scores {s_err:.3e} of "
+        f"the scale (0.02), {plda_dev_s:.3f} s against {plda_host_s:.3f} s")
+
+    # backend_eval with device scoring against phase 9's host scoring
+    t0 = time.perf_counter()
+    dev_res, dev_art = backend_eval(*args[:4], dataclasses.replace(bcfg, device_scoring=True),
+                                    **dict(kw, device=device))
+    eval_s = time.perf_counter() - t0
+    keys = sorted(host_art["scores"])
+    hs = np.array([host_art["scores"][k] for k in keys])
+    ds = np.array([dev_art["scores"][k] for k in keys])
+    sc_err = float(np.abs(ds - hs).max() / np.abs(hs).max())
+    one_trial = 1.0 / min(host_res.num_target, host_res.num_nontarget)
+    if not (abs(dev_res.eer - host_res.eer) <= one_trial and sc_err <= 2e-3):
+        problems.append(f"backend_eval device scoring: EER {dev_res.eer} against {host_res.eer}, "
+                        f"scores {sc_err}")
+    parts.append(f"backend_eval(device_scoring=True) on phase 9's v2 embeddings: EER "
+                 f"{100 * dev_res.eer:.4f}% against the host's {100 * host_res.eer:.4f}% (one "
+                 f"trial {100 * one_trial:.4f}%), scores {sc_err:.3e} of the scale (2e-3), "
+                 f"{len(keys)} trials in {eval_s:.3f} s")
+
+    # streaming_embed on a long stream against whole-utterance pooling
+    frames, chunk = stream
+    model = drv["v2_model"]
+    feats = np.random.default_rng(12).normal(size=(frames, model.cfg.feat_dim)).astype(np.float32)
+    streaming_embed(model, feats[:2 * chunk], chunk=chunk, device=device)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    streamed = streaming_embed(model, feats, chunk=chunk, device=device)
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = extract_and_score(model, None, {"stream": feats},
+                              ExtractConfig(chunk_size=frames, batch_size=1),
+                              model.cfg.min_frames, device=device)["stream"]
+    whole_s = time.perf_counter() - t0
+    st_err = float(np.max(np.abs(streamed - whole) - STREAM_TOL * np.abs(whole)))
+    if not (streamed.dtype == np.float32 and st_err <= STREAM_TOL):
+        problems.append(f"streaming_embed off whole-utterance pooling: {st_err}")
+    parts.append(f"streaming_embed on {frames} frames ({frames / 6000:.0f} min) with chunk "
+                 f"{chunk}: {stream_s:.3f} s ({frames * 0.01 / stream_s:.1f} audio-s/s), "
+                 f"whole-utterance extract_and_score {whole_s:.3f} s; |streamed - whole| - "
+                 f"{STREAM_TOL} |whole| at most {st_err:.3e} (limit {STREAM_TOL})")
+    log(f"phase 11d on-device backend on {env['smi'] if env else device}: " + "; ".join(parts))
+    if problems:
+        raise AssertionError("phase 11d: " + "; ".join(problems))
+    return {"plda_err": err, "eer_dev": dev_res.eer, "eer_host": host_res.eer}
+
+
 
 def main() -> int:
     import torch
@@ -2097,7 +2558,7 @@ def main() -> int:
     s5 = phase_s5(env)
     mfcc["launches_s5_path"] = s5["launches"]["mfcc_fused"]
     t7 = [time.perf_counter()]
-    phase_train_step(env)
+    fp32_v2 = phase_train_step(env)
     t7.append(time.perf_counter())
     train = phase_train_path(env)
     mfcc["launches_train_path"] = train["launches"]
@@ -2107,7 +2568,7 @@ def main() -> int:
     log(f"phase 7 wall on {env['smi']}: 7a {t7[1] - t7[0]:.1f} s, 7b {t7[2] - t7[1]:.1f} s, "
         f"7c {t7[3] - t7[2]:.1f} s")
     t8 = [time.perf_counter()]
-    phase_cvector_steps(env)
+    fp32_cv = phase_cvector_steps(env)
     t8.append(time.perf_counter())
     cvec = phase_cvector_path(env, s5)
     t8.append(time.perf_counter())
@@ -2116,7 +2577,7 @@ def main() -> int:
     log(f"phase 8 wall on {env['smi']}: 8a {t8[1] - t8[0]:.1f} s, 8b {t8[2] - t8[1]:.1f} s, "
         f"8c {t8[3] - t8[2]:.1f} s")
     t9 = time.perf_counter()
-    drv = phase_driver_path(env)
+    drv = phase_driver_path(env, keep_s5=True)
     log(f"phase 9 wall on {env['smi']}: {time.perf_counter() - t9:.1f} s")
     t10 = [time.perf_counter()]
     v1 = phase_v1_path(env, drv["corpus"])
@@ -2127,6 +2588,19 @@ def main() -> int:
     t10.append(time.perf_counter())
     log(f"phase 10 wall on {env['smi']}: 10a {t10[1] - t10[0]:.1f} s, 10b {t10[2] - t10[1]:.1f} s, "
         f"10c {t10[3] - t10[2]:.1f} s")
+    t11 = [time.perf_counter()]
+    phase_bf16_steps(env, fp32_v2, fp32_cv)
+    t11.append(time.perf_counter())
+    phase_bf16_agreement(env)
+    t11.append(time.perf_counter())
+    bf16 = phase_bf16_driver(env, drv)
+    t11.append(time.perf_counter())
+    phase_device_backend(env, drv)
+    t11.append(time.perf_counter())
+    wall11 = t11[-1] - t11[0]
+    log(f"phase 11 wall on {env['smi']}: 11a {t11[1] - t11[0]:.1f} s, 11b {t11[2] - t11[1]:.1f} s, "
+        f"11c {t11[3] - t11[2]:.1f} s, 11d {t11[4] - t11[3]:.1f} s; {wall11:.1f} s against its "
+        f"{P11_BUDGET_S:.0f} s budget ({'within' if wall11 <= P11_BUDGET_S else 'over'})")
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -2136,10 +2610,12 @@ def main() -> int:
     mfcc["launches_driver_path"] = drv["launches"]["mfcc_fused"]
     mfcc["launches_v1_path"] = v1["launches"]
     mfcc["launches_v1_dnn_path"] = dnn["launches"]
+    mfcc["launches_bf16_driver_path"] = bf16["launches"]
     mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
         {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
                           for c, (n, e) in dnn["mfcc"].items()}}.items())}
-    mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"]]
+    mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"],
+                               bf16["mfcc_err"]]
                               + [e for _, e in v1["mfcc"].values()]
                               + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]

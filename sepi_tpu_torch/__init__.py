@@ -14,7 +14,10 @@ same inputs:
   batch-norm calibration);
 - the phonetic c-vector systems (v3/v4/v5) and the recipe drivers;
 - the v1 i-vector systems: GMM-UBM and T-matrix EM (`classical`), the
-  DNN/i-vector variant with the p-norm nnet2 senone net, `run_v1`.
+  DNN/i-vector variant with the p-norm nnet2 senone net, `run_v1`;
+- bf16 compute for every TDNN trainer and driver, the on-device backend
+  (`backend.device`: PLDA scoring, LDA and PLDA EM in float32), z/t/s-norm,
+  score fusion and `extract.streaming_embed`.
 Imports torch and numpy only; kernels build with nvcc at first use.
 """
 

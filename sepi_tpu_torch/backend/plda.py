@@ -18,7 +18,8 @@ one batched computation:
 
 A numpy copy of `sepi_tpu/backend/plda.py`: the float64 host scoring
 that is the reference's default (`BackendConfig.device_scoring=False`).
-The on-device scoring of `sepi_tpu/backend/device.py` is not ported yet.
+``score_trials(device=True)`` scores on a torch device instead
+(`backend.device.plda_score_matrix_device`, float32).
 """
 
 from __future__ import annotations
@@ -240,11 +241,14 @@ def score_trials(
     trials: Sequence,
     num_utts: Optional[Mapping[str, int]] = None,
     device: bool = False,
+    scoring_device="cuda",
 ) -> Dict[Tuple[str, str], float]:
     """Score a trial list via the dense matrix (models x tests), then join.
 
-    Host float64 only: ``device=True`` (on-device f32 scoring) is not
-    ported yet and raises."""
+    ``device=True`` (the reference's switch) computes the matrix in
+    float32 on ``scoring_device`` (default ``"cuda"``; with no usable GPU
+    it raises unless the caller names ``"cpu"``); otherwise float64 on
+    the host."""
     models = sorted({t.model for t in trials})
     tests = sorted({t.test for t in trials})
     e = np.stack([enroll_vecs[m] for m in models])
@@ -253,8 +257,11 @@ def score_trials(
     if num_utts is not None:
         n = np.array([num_utts.get(m, 1) for m in models], np.float64)
     if device:
-        raise NotImplementedError("on-device PLDA scoring is not ported yet")
-    s = plda_score_matrix(plda, e, v, n)
+        from .device import plda_score_matrix_device
+
+        s = plda_score_matrix_device(plda, e, v, n, device=scoring_device).cpu().numpy()
+    else:
+        s = plda_score_matrix(plda, e, v, n)
     mi = {m: i for i, m in enumerate(models)}
     ti = {t: i for i, t in enumerate(tests)}
     return {(t.model, t.test): float(s[mi[t.model], ti[t.test]]) for t in trials}

@@ -145,10 +145,25 @@ class OptimizerConfig:
     preconditioner: str = "muon"
 
 
+# the compute dtypes of the TDNN stacks: parameters, batch norm and logits
+# stay float32 in both, as in the reference's Flax models
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_compute_dtype(name: str) -> str:
+    """``name`` if it is a compute dtype, "float32" or "bfloat16"; anything
+    else raises."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} not in {COMPUTE_DTYPES}")
+    return name
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training options.  ``compute_dtype`` other than "float32" is not
-    ported yet; ``profile`` writes a `torch.profiler` trace per checkpoint
+    """Training options.  ``compute_dtype`` is the TDNN stacks' compute
+    dtype, "float32" or "bfloat16" (each affine and its ReLU in that
+    dtype; parameters, batch norm and logits float32); anything else
+    raises.  ``profile`` writes a `torch.profiler` trace per checkpoint
     segment under ``<checkpoint_dir>/../profile/seg<start>-<end>``."""
 
     optimizer: OptimizerConfig = OptimizerConfig()
@@ -168,6 +183,9 @@ class TrainConfig:
     # background-thread batch prefetch depth (ark,bg: analog); 0 disables
     prefetch: int = 2
     profile: bool = False
+
+    def __post_init__(self):
+        check_compute_dtype(self.compute_dtype)
 
     replace = _replace
 

@@ -4,7 +4,10 @@ Port of `sepi_tpu/extract.py` (`extract_xvectors_new.sh` +
 `nnet3-xvector-compute`): utterances split into <= chunk_size pieces,
 chunks padded up to a small ladder of bucket lengths and run as dense
 masked batches, per-chunk embeddings averaged weighted by chunk length,
-and `ivector-mean` speaker averaging.  `streaming_embed` is not ported.
+and `ivector-mean` speaker averaging; `streaming_embed` pools an
+utterance of any length exactly.  A bfloat16 model's embeddings come back
+as float32: the values are bf16-rounded and the sums float32, as the
+reference's numpy upcast gives them.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from .config import ExtractConfig
-from .device import DeviceLike, resolve_device
+from .device import DeviceLike, fp32_math, resolve_device
 
 
 def chunk_spans(num_frames: int, cfg: ExtractConfig, min_frames: int) -> List[Tuple[int, int]]:
@@ -96,7 +99,7 @@ class EmbeddingExtractor:
                     out = self.model(torch.from_numpy(feats).to(self.device),
                                      frame_mask=torch.from_numpy(mask).to(self.device),
                                      **self.model_kwargs)
-                emb = out[node].cpu().numpy()
+                emb = out[node].float().cpu().numpy()
                 for j, (utt, off, length) in enumerate(group):
                     if utt in sums:
                         sums[utt] = sums[utt] + length * emb[j]
@@ -105,6 +108,45 @@ class EmbeddingExtractor:
                         sums[utt] = length * emb[j]
                         weights[utt] = float(length)
         return {u: sums[u] / weights[u] for u in sums}
+
+
+@fp32_math()
+def streaming_embed(model: torch.nn.Module, feats: np.ndarray, chunk: int = 10000,
+                    var_floor: float = 1e-10, device: DeviceLike = "cuda") -> np.ndarray:
+    """Exact single-pass embedding of an utterance of any length.
+
+    The reference recipe caps stats pooling at 10 000 frames and averages
+    per-chunk embeddings (`extract_xvectors_new.sh:86-93`).  Here trunk
+    chunks overlap by the receptive field, so every trunk frame is
+    computed exactly once, and feed a running count, sum and float64 sum
+    of squares; the segment head runs once on the whole utterance's
+    statistics.  ``model`` exposes ``trunk``/``head`` (`models.XVector`)
+    and runs in eval mode on ``device``; ``feats`` is (T, D).  Returns
+    the float32 ``embedding_a``."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    left, right = model.cfg.context
+    ctx = left + right
+    t = feats.shape[0]
+    if t <= ctx:
+        raise ValueError(f"utterance too short: {t} <= receptive field {ctx}")
+    x = torch.as_tensor(np.asarray(feats, np.float32), device=dev)
+    count, s1, s2 = 0, 0.0, 0.0
+    # chunk starts step by (chunk - ctx) so the trunk's outputs tile exactly
+    step = max(chunk - ctx, 1)
+    with torch.no_grad():
+        for off in range(0, t - ctx, step):
+            piece = x[off:off + chunk]
+            if piece.shape[0] <= ctx:
+                break
+            out = model.trunk(piece[None]).x[0]  # (piece - ctx, C), float32
+            count += out.shape[0]
+            s1 = s1 + out.sum(0)
+            s2 = s2 + (out.double() ** 2).sum(0)
+        mean = s1 / count
+        var = torch.clamp(s2 / count - mean.double() ** 2, min=var_floor)
+        pooled = torch.cat([mean, torch.sqrt(var).float()])
+        return model.head(pooled[None])["embedding_a"][0].float().cpu().numpy()
 
 
 def speaker_mean(

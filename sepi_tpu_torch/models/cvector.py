@@ -18,6 +18,9 @@ Submodule names are the reference's Flax names (every stack numbers its
 layers from ``tdnn1``), so the bridge, the graft and the ``{"am": f}``
 learning-rate factors go by the same paths.  Streams are (B, T, C); the
 per-frame heads are a `Linear` over channels and return (B, T, senones).
+Every model takes the compute ``dtype`` of its TDNN layers (see
+`models.tdnn`); the per-frame and speaker ``output`` layers stay float32,
+as the reference's `nn.Dense` has no dtype.
 """
 
 from __future__ import annotations
@@ -75,10 +78,10 @@ class AmNet(nn.Module):
     ``with_logits`` (the grafted feed of v4/v5) there is no ``output``
     layer, as the reference's tree has none there."""
 
-    def __init__(self, cfg: AmConfig, with_logits: bool = True):
+    def __init__(self, cfg: AmConfig, with_logits: bool = True, dtype: str = "float32"):
         super().__init__()
         self.cfg = cfg
-        self.frames = TdnnStack(cfg.specs, cfg.feat_dim)
+        self.frames = TdnnStack(cfg.specs, cfg.feat_dim, dtype)
         self.output = nn.Linear(cfg.bottleneck_dim, cfg.num_senones) if with_logits else None
 
     def forward(self, feats: torch.Tensor):
@@ -164,17 +167,17 @@ class MultitaskCVector(nn.Module):
     """Two-head c-vector net; each training step is one task, as the
     reference's interleaved egs (`frame_level_objf/common.py:248-294`)."""
 
-    def __init__(self, cfg: MultitaskConfig):
+    def __init__(self, cfg: MultitaskConfig, dtype: str = "float32"):
         super().__init__()
         self.cfg = cfg
-        self.shared = TdnnStack(cfg.shared_specs, cfg.feat_dim)
+        self.shared = TdnnStack(cfg.shared_specs, cfg.feat_dim, dtype)
         d = self.shared.out_dim
-        self.am_branch = TdnnStack(_am_branch(cfg.num_shared, cfg.hidden_dim), d)
+        self.am_branch = TdnnStack(_am_branch(cfg.num_shared, cfg.hidden_dim), d, dtype)
         self.output_am = nn.Linear(self.am_branch.out_dim, cfg.num_senones)
         self.xvec_branch = TdnnStack(
-            _xvec_branch(cfg.num_shared, cfg.hidden_dim, cfg.pool_dim), d)
+            _xvec_branch(cfg.num_shared, cfg.hidden_dim, cfg.pool_dim), d, dtype)
         self.stats = StatsPooling()
-        self.segment = SegmentHead(2 * cfg.pool_dim, cfg.embed_dim, cfg.num_speakers)
+        self.segment = SegmentHead(2 * cfg.pool_dim, cfg.embed_dim, cfg.num_speakers, dtype)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 task: str = "both"):
@@ -216,15 +219,15 @@ class AdaptedXVector(nn.Module):
     """x-vector with the phonetic bottleneck appended ahead of tdnn5; the
     ``am`` subtree is grafted from a pretrained AmNet (train/graft.py)."""
 
-    def __init__(self, cfg: AdaptedConfig):
+    def __init__(self, cfg: AdaptedConfig, dtype: str = "float32"):
         super().__init__()
         self.cfg = cfg
-        self.am = AmNet(cfg.am, with_logits=False)
-        self.xvec_branch = TdnnStack(_prefix(cfg.hidden_dim)[:4], cfg.feat_dim)
+        self.am = AmNet(cfg.am, with_logits=False, dtype=dtype)
+        self.xvec_branch = TdnnStack(_prefix(cfg.hidden_dim)[:4], cfg.feat_dim, dtype)
         self.tdnn5 = TdnnLayer(TdnnSpec(cfg.pool_dim, (0,)),
-                               self.xvec_branch.out_dim + cfg.am.bottleneck_dim)
+                               self.xvec_branch.out_dim + cfg.am.bottleneck_dim, dtype)
         self.stats = StatsPooling()
-        self.segment = SegmentHead(2 * cfg.pool_dim, cfg.embed_dim, cfg.num_speakers)
+        self.segment = SegmentHead(2 * cfg.pool_dim, cfg.embed_dim, cfg.num_speakers, dtype)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None):
         am = self.am(feats)["bottleneck"]
@@ -274,20 +277,20 @@ class CombinedCVector(nn.Module):
     """v5: shared trunk + multitask AM branch + pretrained-AM bottleneck
     feed into the x-vector branch's tdnn5 (`train_cvector_with_am.sh:65-89`)."""
 
-    def __init__(self, cfg: CombinedConfig):
+    def __init__(self, cfg: CombinedConfig, dtype: str = "float32"):
         super().__init__()
         self.cfg = cfg
-        self.shared = TdnnStack(cfg.shared_specs, cfg.feat_dim)
+        self.shared = TdnnStack(cfg.shared_specs, cfg.feat_dim, dtype)
         d = self.shared.out_dim
-        self.am_branch = TdnnStack(_am_branch(cfg.num_shared, cfg.hidden_dim), d)
+        self.am_branch = TdnnStack(_am_branch(cfg.num_shared, cfg.hidden_dim), d, dtype)
         self.output_am = nn.Linear(self.am_branch.out_dim, cfg.num_senones)
-        self.am = AmNet(cfg.am, with_logits=False)
+        self.am = AmNet(cfg.am, with_logits=False, dtype=dtype)
         self.xvec_branch = TdnnStack(
-            _xvec_branch(cfg.num_shared, cfg.hidden_dim, cfg.pool_dim)[:-1], d)
+            _xvec_branch(cfg.num_shared, cfg.hidden_dim, cfg.pool_dim)[:-1], d, dtype)
         self.tdnn5 = TdnnLayer(TdnnSpec(cfg.pool_dim, (0,)),
-                               self.xvec_branch.out_dim + cfg.am.bottleneck_dim)
+                               self.xvec_branch.out_dim + cfg.am.bottleneck_dim, dtype)
         self.stats = StatsPooling()
-        self.segment = SegmentHead(2 * cfg.pool_dim, cfg.embed_dim, cfg.num_speakers)
+        self.segment = SegmentHead(2 * cfg.pool_dim, cfg.embed_dim, cfg.num_speakers, dtype)
 
     def forward(self, feats: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                 task: str = "both"):

@@ -5,6 +5,15 @@ a kernel-3 / dilation-3 VALID `Conv1d`; layer order is Kaldi's affine ->
 ReLU -> batchnorm (eps 1e-3, a scale but no bias); the embedding tap is
 the affine pre-activation.  Public functions keep the reference's
 (B, T, C) layout; the convolutions run on (B, C, T) inside.
+
+Compute dtype (``dtype``, Flax's convention): parameters stay float32.
+In ``"bfloat16"`` the affine casts its input, weight and bias to bf16 and
+returns bf16, as Flax's ``nn.Conv(dtype=...)`` promotes all three, and
+the ReLU runs in bf16; batch norm promotes its input to at least float32
+first, so statistics pooling and the logits see float32, and the
+embedding tap stays bf16.  In ``"float32"`` the affine computes in its
+parameters' dtype (float64 too, for a host reference made with
+``.to(torch.float64)``).
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..config import check_compute_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +115,7 @@ class BatchNorm(nn.Module):
       the biased variance included (`torch.nn.BatchNorm1d` would store
       the unbiased one: 64/63 apart in the segment layers, where the
       statistics reduce over the batch only).
+    - The input is promoted to at least float32 first, in both modes.
     - Eval mode normalises with the running statistics.
     - ``weight`` is the trainable scale; ``bias`` is a buffer held at 0
       (Kaldi's batchnorm-component has no offset), so no optimizer sees it.
@@ -124,6 +136,8 @@ class BatchNorm(nn.Module):
         self.moments: Optional[list] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Flax's BatchNorm(dtype=float32): the input promoted to at least float32
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
@@ -185,32 +199,41 @@ def lecun_normal_init(model: nn.Module, seed: int) -> None:
 
 
 class TdnnLayer(nn.Module):
-    """affine (VALID dilated Conv1d) -> ReLU -> BatchNorm on (B, C, T)."""
+    """affine (VALID dilated Conv1d) -> ReLU -> BatchNorm on (B, C, T);
+    the affine and the ReLU in ``dtype``, the batch norm in float32."""
 
-    def __init__(self, spec: TdnnSpec, in_dim: int):
+    def __init__(self, spec: TdnnSpec, in_dim: int, dtype: str = "float32"):
         super().__init__()
         self.affine = nn.Conv1d(in_dim, spec.dim, spec.kernel_size,
                                 dilation=spec.dilation)
         self.batchnorm = BatchNorm(spec.dim)
+        self.dtype = getattr(torch, check_compute_dtype(dtype))
 
     def forward(self, x: torch.Tensor, return_affine: bool = False):
-        affine = self.affine(x)
+        a = self.affine
+        dt = self.dtype if self.dtype == torch.bfloat16 else a.weight.dtype
+        affine = F.conv1d(x.to(dt), a.weight.to(dt), a.bias.to(dt), dilation=a.dilation)
         h = self.batchnorm(torch.relu(affine))
         if return_affine:
             return h, affine
         return h
 
 
+def compute_dtype(model: nn.Module) -> torch.dtype:
+    """The compute dtype of ``model``'s TDNN layers (its first layer's)."""
+    return next(m.dtype for m in model.modules() if isinstance(m, TdnnLayer))
+
+
 class TdnnStack(nn.Module):
     """A chain of TdnnLayers named ``tdnn1..n`` operating on (B, C, T)."""
 
-    def __init__(self, specs: Sequence[TdnnSpec], in_dim: int):
+    def __init__(self, specs: Sequence[TdnnSpec], in_dim: int, dtype: str = "float32"):
         super().__init__()
         self.names = []
         self.context = stack_context(specs)
         for i, spec in enumerate(specs):
             name = f"tdnn{i + 1}"
-            self.add_module(name, TdnnLayer(spec, in_dim))
+            self.add_module(name, TdnnLayer(spec, in_dim, dtype))
             self.names.append(name)
             in_dim = spec.dim
         self.out_dim = in_dim
@@ -253,12 +276,14 @@ class SegmentHead(nn.Module):
     """Post-pooling head: tdnn6 -> tdnn7 -> output layer.
 
     Returns a dict with ``embedding_a``/``embedding_b`` (the affine
-    pre-activations of tdnn6/tdnn7) and, with classes, ``logits``."""
+    pre-activations of tdnn6/tdnn7, in ``dtype``) and, with classes,
+    ``logits`` (float32: the output layer has no compute dtype)."""
 
-    def __init__(self, in_dim: int, embed_dim: int = 512, num_classes: int = 0):
+    def __init__(self, in_dim: int, embed_dim: int = 512, num_classes: int = 0,
+                 dtype: str = "float32"):
         super().__init__()
-        self.tdnn6 = TdnnLayer(TdnnSpec(embed_dim), in_dim)
-        self.tdnn7 = TdnnLayer(TdnnSpec(embed_dim), embed_dim)
+        self.tdnn6 = TdnnLayer(TdnnSpec(embed_dim), in_dim, dtype)
+        self.tdnn7 = TdnnLayer(TdnnSpec(embed_dim), embed_dim, dtype)
         self.output = nn.Linear(embed_dim, num_classes) if num_classes else None
 
     def forward(self, pooled: torch.Tensor):

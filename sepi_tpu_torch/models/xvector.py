@@ -46,13 +46,16 @@ V2_XVECTOR = XVectorConfig()
 
 
 class XVector(nn.Module):
-    def __init__(self, cfg: XVectorConfig):
+    """``dtype`` is the compute dtype of every TDNN layer (see
+    `models.tdnn`); parameters and logits stay float32."""
+
+    def __init__(self, cfg: XVectorConfig, dtype: str = "float32"):
         super().__init__()
         self.cfg = cfg
-        self.frames = TdnnStack(cfg.frame_specs, cfg.feat_dim)
+        self.frames = TdnnStack(cfg.frame_specs, cfg.feat_dim, dtype)
         self.stats = StatsPooling()
         self.segment = SegmentHead(2 * cfg.frame_specs[-1].dim, cfg.embed_dim,
-                                   cfg.num_speakers)
+                                   cfg.num_speakers, dtype)
 
     def trunk(self, feats: torch.Tensor) -> Stream:
         """Frame-level layers only: (B, T, D) -> Stream of (B, T', C)."""

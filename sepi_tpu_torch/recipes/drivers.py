@@ -22,7 +22,8 @@ in-domain set adapt the PLDA covariances before scoring.
 Each driver takes the reference's arguments plus ``device=`` (default
 "cuda") and passes it to every stage: the features (MFCC kernel), the s5
 aligner (Viterbi kernel), the augmentation's FFT, the UBM and T-matrix
-EM, the trainers and the extraction.  The device mesh is not ported: a
+EM, the trainers, the extraction and the backend's trial scoring when
+``BackendConfig.device_scoring`` is on.  The device mesh is not ported: a
 mesh raises, as a training entry point does.  `RunResult.seconds` holds
 each stage's wall seconds.  Every driver runs inside `device.fp32_math`
 (no TF32).  The classical modules load only when `run_v1` runs.
@@ -186,7 +187,7 @@ def _finish(
         stages.mark("files")
     result, art = pipeline.backend_eval(
         utt_embeddings, train_dataset, trials, enroll_spk2utt, backend_cfg,
-        adapt_vectors=adapt_embeddings,
+        adapt_vectors=adapt_embeddings, device=stages.device,
     )
     stages.mark("backend")
     if workdir:

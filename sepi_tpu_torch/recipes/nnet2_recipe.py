@@ -123,6 +123,12 @@ def train_nnet2_am(
         feat_dim = next(iter(features.values())).shape[1]
         cfg = Nnet2Config(feat_dim=feat_dim, num_senones=num_senones)
     train_cfg = train_cfg or TrainConfig(optimizer=NNET2_OPTIMIZER)
+    if train_cfg.compute_dtype != "float32":
+        # the p-norm net has no compute dtype (the reference trains it in
+        # float32 whatever the config says): a bf16 request is refused
+        # rather than quietly run in float32
+        raise ValueError(f"compute_dtype {train_cfg.compute_dtype!r}: the nnet2 model "
+                         "computes in float32 only")
     dev = training_device(train_cfg, mesh, device)
     sampler = FrameSampler(features, alignments, chunk_len=frames_per_eg,
                            batch_size=train_cfg.am_batch_size, seed=train_cfg.seed,

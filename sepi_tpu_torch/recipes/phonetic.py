@@ -138,7 +138,8 @@ def train_am_model(
                            context=am_cfg.context)
     tx, _ = build_optimizer(train_cfg.optimizer, num_steps)
     sampler.sample_batch()  # the reference's probe batch: keeps the RNG in step
-    state = create_train_state(AmNet(am_cfg), tx, train_cfg.seed, dev)
+    state = create_train_state(AmNet(am_cfg, dtype=train_cfg.compute_dtype), tx,
+                               train_cfg.seed, dev)
     calib = [sampler.sample_batch().feats for _ in range(3)]
     state = _train(state, {"am": make_am_step(tx)}, iter(sampler), num_steps, calib, train_cfg,
                    log=log, supersteps=make_task_supersteps(tx, {"am": {}}, train_cfg))
@@ -253,7 +254,8 @@ def train_multitask_model(
 ):
     """v3: two-head training on interleaved single-task minibatches."""
     dev = training_device(train_cfg, mesh, device)
-    return _two_task_run(MultitaskCVector(model_cfg), features, alignments, dataset, train_cfg,
+    return _two_task_run(MultitaskCVector(model_cfg, dtype=train_cfg.compute_dtype),
+                         features, alignments, dataset, train_cfg,
                          num_steps, model_cfg.am_context, dev, log, checkpoint_dir,
                          num_heldout_utts)
 
@@ -288,7 +290,8 @@ def train_adapted_model(
                            label_map=label_map)
     tx, _ = build_optimizer(train_cfg.optimizer, num_steps, lr_factors={"am": am_lr_factor})
     sampler.sample_batch(sampler.buckets[0])  # the reference's probe batch
-    state = create_train_state(AdaptedXVector(model_cfg), tx, train_cfg.seed, dev)
+    state = create_train_state(AdaptedXVector(model_cfg, dtype=train_cfg.compute_dtype), tx,
+                               train_cfg.seed, dev)
     graft_subtree(state.model, am_model, "am")
     eval_steps = {"xvec": make_eval_step()} if valid_batches else None
     calib = [sampler.sample_batch(b).feats for b in sampler.buckets[:3]]
@@ -320,6 +323,7 @@ def train_combined_model(
     training (as `train_multitask_model`); the am-task frame egs take the
     multitask AM head's context."""
     dev = training_device(train_cfg, mesh, device)
-    return _two_task_run(CombinedCVector(model_cfg), features, alignments, dataset, train_cfg,
+    return _two_task_run(CombinedCVector(model_cfg, dtype=train_cfg.compute_dtype),
+                         features, alignments, dataset, train_cfg,
                          num_steps, model_cfg.am_context, dev, log, checkpoint_dir,
                          num_heldout_utts, lr_factors={"am": am_lr_factor}, graft_from=am_model)

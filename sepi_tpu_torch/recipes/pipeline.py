@@ -312,11 +312,10 @@ def heldout_split(dataset: Dataset, num_heldout_utts: int,
 
 def training_device(train_cfg: TrainConfig, mesh, device: DeviceLike) -> torch.device:
     """The device of a training entry point, after refusing what is not
-    ported: the device mesh and a compute dtype other than float32."""
+    ported: the device mesh.  (``train_cfg.compute_dtype`` was checked
+    when the config was made.)"""
     if mesh is not None:
         raise NotImplementedError("the device mesh is not ported yet")
-    if train_cfg.compute_dtype != "float32":
-        raise NotImplementedError(f"compute_dtype {train_cfg.compute_dtype!r}: only float32")
     return resolve_device(device)
 
 
@@ -351,7 +350,7 @@ def train_xvector_model(
     label_map = dataset.speaker_label_map()
     if model_cfg is None:
         model_cfg = XVectorConfig(feat_dim=feat_dim, num_speakers=len(label_map))
-    model = XVector(model_cfg)
+    model = XVector(model_cfg, dtype=train_cfg.compute_dtype)
 
     train_ds, valid_batches, eval_steps = dataset, None, None
     num_heldout_utts = auto_heldout(dataset, num_heldout_utts)
@@ -453,9 +452,12 @@ def backend_eval(
     enroll_spk2utt: Mapping[str, Sequence[str]],
     backend_cfg: BackendConfig = BackendConfig(),
     adapt_vectors: Optional[np.ndarray] = None,
+    device: DeviceLike = "cuda",
 ) -> Tuple[EvalResult, Dict]:
     """mean -> LDA -> length-norm -> PLDA -> trial scoring -> EER/DCF,
-    in float64 on the host as the reference's default.  ``train_dataset``
+    in float64 on the host as the reference's default; with
+    ``backend_cfg.device_scoring`` the trial matrix is scored in float32
+    on ``device`` (the only use of ``device`` here).  ``train_dataset``
     supplies the LDA/PLDA training population; ``enroll_spk2utt`` defines
     the enrollment models (speaker -> utts)."""
     train_ids = [u for u in train_dataset.utt_ids if u in utt_embeddings]
@@ -501,7 +503,7 @@ def backend_eval(
     }
     usable = [t for t in trials if t.model in enroll_vecs and t.test in test_vecs]
     scores = score_trials(plda, enroll_vecs, test_vecs, usable, num_utts,
-                          device=backend_cfg.device_scoring)
+                          device=backend_cfg.device_scoring, scoring_device=device)
     tgt, non = split_scores_by_trials(
         scores, [(t.model, t.test, t.target) for t in usable]
     )

@@ -111,3 +111,39 @@ def test_phonetic_drivers_need_alignments(tmp_path, corpus):
         run_v5(corpus.dataset, corpus.audio, {}, corpus.trials, _enroll(corpus),
                str(tmp_path), mesh=object(), device="cpu")
     assert not np.any([f.startswith("feats_train") for f in os.listdir(tmp_path)])
+
+
+def test_run_v4_and_v5_train_and_extract_in_bf16(tmp_path, corpus, monkeypatch):
+    """`TrainConfig(compute_dtype="bfloat16")` through run_v4 (the s5 stage
+    inside) and run_v5 (from v4's stage files): each extracts with the bf16
+    model its trainer returned, writes float32 embeddings, and scores."""
+    from sepi_tpu_torch.models import compute_dtype
+    from sepi_tpu_torch.recipes import pipeline
+
+    dtypes = []
+    orig = pipeline.extract_and_score
+
+    def spy(model, *args, **kw):
+        dtypes.append(compute_dtype(model))
+        return orig(model, *args, **kw)
+
+    monkeypatch.setattr(pipeline, "extract_and_score", spy)
+    bf16 = TRAIN_CFG.replace(compute_dtype="bfloat16")
+    v4, v5 = str(tmp_path / "v4"), str(tmp_path / "v5")
+    common = dict(transcripts=corpus.transcripts, lexicon=corpus.lexicon, align_cfg=ALIGN_CFG,
+                  am_cfg=_tiny_am(40), train_cfg=bf16, extract_cfg=EXTRACT_CFG, am_steps=50,
+                  num_steps=100, device="cpu")
+    res4 = run_v4(corpus.dataset, corpus.audio, {}, corpus.trials, _enroll(corpus), v4,
+                  model_cfg=AdaptedConfig(am=_tiny_am(40), **WIDTHS), **common)
+    os.makedirs(v5)
+    for f in os.listdir(v4):
+        if f.startswith(("s5_feats_ali-", "feats_")):
+            shutil.copy(os.path.join(v4, f), v5)
+    res5 = run_v5(corpus.dataset, corpus.audio, {}, corpus.trials, _enroll(corpus), v5,
+                  model_cfg=CombinedConfig(num_senones=40, am=_tiny_am(40), **WIDTHS), **common)
+    assert dtypes and all(d == torch.bfloat16 for d in dtypes)
+    for res, wd in ((res4, v4), (res5, v5)):
+        assert res.pooled.eer < 0.35 and res.pooled.num_target > 0
+        table = dict(read_scp(os.path.join(wd, "xvector.scp")))
+        assert set(table) == set(corpus.dataset.utt_ids)
+        assert os.path.exists(os.path.join(wd, "backend", "plda"))

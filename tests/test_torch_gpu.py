@@ -7,7 +7,9 @@ Run on a machine with an NVIDIA Hopper GPU, from the repository root:
 (``--noconftest`` because tests/conftest.py configures JAX, which the
 port's machine need not have.)  Each kernel is compared with its plain
 PyTorch version on the same device at small shapes; the training step,
-the Muon orthogonalisation and the input staging are held against the CPU.
+the Muon orthogonalisation and the input staging are held against the CPU,
+as are a bf16 model's forward and steps, the on-device backend and
+streaming extraction.
 """
 
 import dataclasses
@@ -443,3 +445,112 @@ def test_entry_points_hold_fp32_under_tf32_flags(cuda):
     for a, b in ((ubm.means, ubm_c.means), (ubm.covars, ubm_c.covars), (ext.t, ext_c.t)):
         a = a.cpu()
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-3
+
+
+# ------------------------------------------- bf16 compute and the device backend
+
+BF16_U = 2.0 ** -8  # bfloat16 unit roundoff; limits set before the first run on a card
+BF16_OUT_TOL, BF16_TRAJ_TOL = 4 * BF16_U, 8 * BF16_U
+
+
+def test_bf16_forward_and_steps_on_the_card_match_the_cpu(cuda):
+    """A narrow x-vector in bf16: an eval-mode forward within 4 u of the
+    CPU's (embedding bf16, logits float32), and 3 momentum-SGD steps
+    within 8 u in the trajectory measure; parameters stay float32."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import TdnnSpec, XVector, XVectorConfig, lecun_normal_init
+    from sepi_tpu_torch.train import TrainState, build_optimizer, make_xvec_step
+
+    specs = (TdnnSpec(64, (-2, -1, 0, 1, 2)), TdnnSpec(64, (-2, 0, 2)), TdnnSpec(64, (-3, 0, 3)),
+             TdnnSpec(64, (0,)), TdnnSpec(192, (0,)))
+    states = []
+    for dev in (cuda, "cpu"):
+        model = XVector(XVectorConfig(feat_dim=23, num_speakers=12, frame_specs=specs,
+                                      embed_dim=64), dtype="bfloat16")
+        lecun_normal_init(model, 3)
+        model.to(dev)
+        chain, _ = build_optimizer(OptimizerConfig(preconditioner="none"), 100)
+        states.append((chain, TrainState(model, chain.init(dict(model.named_parameters())))))
+    (chain_d, sd), (chain_c, sc) = states
+    p0 = _flat(sc.model)
+    batches = _train_batches()
+    f0 = torch.from_numpy(batches[0][0])
+    sd.model.eval()
+    sc.model.eval()
+    with torch.no_grad():
+        od, oc = sd.model(f0.to(cuda)), sc.model(f0)
+    for key, dt in (("embedding_a", torch.bfloat16), ("logits", torch.float32)):
+        assert od[key].dtype == oc[key].dtype == dt
+        c = oc[key].float()
+        assert float((od[key].float().cpu() - c).abs().max()) <= BF16_OUT_TOL * float(
+            c.abs().max()), key
+    for f, l in batches:
+        make_xvec_step(chain_d)(sd, torch.from_numpy(f).to(cuda), torch.from_numpy(l).to(cuda))
+        make_xvec_step(chain_c)(sc, torch.from_numpy(f), torch.from_numpy(l))
+    pd, pc = _flat(sd.model), _flat(sc.model)
+    err = sum(float(torch.sum((pd[k] - pc[k]) ** 2)) for k in pc) ** 0.5
+    change = sum(float(torch.sum((pc[k] - p0[k]) ** 2)) for k in pc) ** 0.5
+    assert err <= BF16_TRAJ_TOL * change
+    assert all(p.dtype == torch.float32 for p in sd.model.parameters())
+
+
+def test_device_backend_on_the_card_matches_float64(cuda):
+    """plda_score_matrix_device, score_trials(device=True), compute_lda_device
+    and train_plda_device on the card, with TF32 turned on by the caller,
+    against the float64 host path at tests/test_backend_device.py's
+    tolerances; the caller's flags come back."""
+    from sepi_tpu_torch.backend import (compute_lda, compute_lda_device, plda_score_matrix,
+                                        plda_score_matrix_device, score_trials, train_plda,
+                                        train_plda_device)
+    from sepi_tpu_torch.data import Trial
+
+    rng = np.random.default_rng(0)
+    dim, k, utts = 40, 60, 8
+    ys = rng.normal(size=(k, dim)) * 2.0
+    x = np.concatenate([ys[i] + rng.normal(size=(utts, dim)) for i in range(k)]) + 5.0
+    labels = [i for i in range(k) for _ in range(utts)]
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        plda = train_plda(x, labels, num_iters=6)
+        enroll, test = rng.normal(size=(300, dim)) + 5.0, rng.normal(size=(400, dim)) + 5.0
+        n = rng.integers(1, 5, size=300).astype(np.float64)
+        got = plda_score_matrix_device(plda, enroll, test, n).cpu().numpy()
+        dev_plda = train_plda_device(x, labels, num_iters=6, block=16)
+        lda_d = compute_lda_device(x, labels, 8)
+        trials = [Trial("m0", "t0", True), Trial("m0", "t1", False), Trial("m1", "t1", True)]
+        vecs_e, vecs_t = {"m0": enroll[0], "m1": enroll[1]}, {"t0": test[0], "t1": test[1]}
+        s_dev = score_trials(plda, vecs_e, vecs_t, trials, device=True)
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (
+            True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    want = plda_score_matrix(plda, enroll, test, n)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=1e-3 * scale, rtol=1e-3)
+    np.testing.assert_allclose(dev_plda.psi, plda.psi, rtol=0.05, atol=0.05)
+    s_host = score_trials(plda, vecs_e, vecs_t, trials)
+    for key, v in s_host.items():
+        assert s_dev[key] == pytest.approx(v, rel=1e-3, abs=1e-3 * scale)
+    lda_h = compute_lda(x, labels, 8)
+    np.testing.assert_allclose(lda_d.mean, lda_h.mean, atol=1e-4)
+    for a, b in zip(lda_h.projection, lda_d.projection):
+        assert abs(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b)) == pytest.approx(1.0,
+                                                                                      abs=1e-3)
+
+
+def test_streaming_embed_on_the_card_matches_whole_utterance(cuda):
+    """streaming_embed on the card over 6000 frames in chunks of 997
+    against whole-utterance extraction (tests/test_e2e.py:117-138's
+    rtol/atol 2e-3)."""
+    from sepi_tpu_torch.config import ExtractConfig, OptimizerConfig
+    from sepi_tpu_torch.extract import streaming_embed
+    from sepi_tpu_torch.recipes import extract_and_score
+
+    model = _tiny_train_state(cuda, OptimizerConfig())[1].model.eval()
+    feats = np.random.default_rng(1).normal(size=(6000, 23)).astype(np.float32)
+    streamed = streaming_embed(model, feats, chunk=997, device="cuda")
+    whole = extract_and_score(model, None, {"u": feats}, ExtractConfig(chunk_size=6000,
+                                                                       batch_size=1),
+                              model.cfg.min_frames, device="cuda")["u"]
+    np.testing.assert_allclose(streamed, whole, rtol=2e-3, atol=2e-3)

@@ -44,6 +44,8 @@ print(len(names), leaked, ",".join(names))
 # the v1 slice's modules, each imported by the probe above
 V1_MODULES = ("classical", "classical.gmm", "classical.ivector", "models.nnet2",
               "recipes.ivector_recipe", "recipes.nnet2_recipe", "ops.deltas")
+# the bf16 and on-device backend slice's new modules
+BACKEND_MODULES = ("backend.device", "backend.normalize", "backend.fusion")
 
 
 def _env():
@@ -60,7 +62,8 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     n, leaked, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and leaked == "[]", out.stdout
-    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES) <= set(names.split(","))
+    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES + BACKEND_MODULES) <= set(
+        names.split(","))
 
 
 def test_no_import_statement_names_the_reference():
@@ -80,8 +83,10 @@ def test_no_import_statement_names_the_reference():
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     """With no usable GPU, an entry point called without device= raises
     instead of running on the CPU."""
+    from sepi_tpu_torch.backend import Plda, score_trials
     from sepi_tpu_torch.config import FrontendConfig
-    from sepi_tpu_torch.extract import EmbeddingExtractor
+    from sepi_tpu_torch.data import Trial
+    from sepi_tpu_torch.extract import EmbeddingExtractor, streaming_embed
     from sepi_tpu_torch.models import V2_XVECTOR, XVector
     from sepi_tpu_torch.ops import FeatureExtractor
     from sepi_tpu_torch.recipes import extract_and_score, prepare_features_nosil
@@ -96,6 +101,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         EmbeddingExtractor(XVector(V2_XVECTOR))
     with pytest.raises(RuntimeError, match="cuda"):
         extract_and_score(XVector(V2_XVECTOR), None, {"u": np.zeros((50, 23), np.float32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        streaming_embed(XVector(V2_XVECTOR), np.zeros((50, 23), np.float32))
+    plda = Plda(mean=np.zeros(2), transform=np.eye(2), psi=np.ones(2))
+    vecs = {"m": np.ones(2), "t": np.ones(2)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        score_trials(plda, vecs, vecs, [Trial("m", "t", True)], device=True)
 
 
 @pytest.mark.parametrize("driver", ["run_v1", "run_v2", "run_v3", "run_v4", "run_v5"])

@@ -5,7 +5,7 @@
   extract_and_score -> backend_eval: each system's EER on its own corpus
   below tests/test_phonetic.py's bound (0.15);
 - every phonetic trainer raises without a GPU unless asked for the CPU,
-  and refuses a mesh and bfloat16.
+  refuses a mesh, and trains in bfloat16 when asked (float32 parameters).
 """
 
 import pytest
@@ -14,6 +14,7 @@ import torch
 from sepi_tpu_torch.config import (AlignConfig, ChunkConfig, ExtractConfig, OptimizerConfig,
                                    TrainConfig)
 from sepi_tpu_torch.data import make_phonetic_corpus
+from sepi_tpu_torch.models import compute_dtype
 from sepi_tpu_torch.models import cvector as tcv
 from sepi_tpu_torch.models.tdnn import TdnnSpec
 from sepi_tpu_torch.recipes import (
@@ -101,11 +102,15 @@ def test_phonetic_entry_points_refuse_cpu_fallback(chain, monkeypatch):
             num_steps=1, **kw),
     }
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    bf16 = TrainConfig(compute_dtype="bfloat16")
+    bf16 = TrainConfig(chunks=ChunkConfig(**CHUNKS), batch_size=8, am_batch_size=16,
+                       compute_dtype="bfloat16")
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()
         with pytest.raises(NotImplementedError, match="mesh"):
             call(mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            call(train_cfg=bf16, device="cpu")
+        model, _ = call(train_cfg=bf16, device="cpu")
+        assert compute_dtype(model) == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TrainConfig(compute_dtype="float16")

@@ -105,7 +105,10 @@ def test_shape_bucket_and_salt():
     assert f0.shape != f1.shape or not np.array_equal(f0, f1)
 
 
-def test_device_scoring_is_not_ported():
+def test_device_scoring_is_not_ported(monkeypatch):
+    """Device scoring is ported now (tests/test_torch_backend_device.py
+    holds it against the reference); what stays is that it never falls
+    back: with no usable GPU it raises unless the caller names the CPU."""
     rng = np.random.default_rng(0)
     embs = {f"s{i}-u{j}": rng.normal(size=8) for i in range(3) for j in range(3)}
     from sepi_tpu_torch.data import Dataset, Trial, Utterance
@@ -113,6 +116,10 @@ def test_device_scoring_is_not_ported():
     ds = Dataset([Utterance(u, u.split("-")[0]) for u in embs])
     trials = [Trial("s0", "s1-u1", False), Trial("s0", "s0-u1", True)]
     enroll = {"s0": ["s0-u0"]}
-    with pytest.raises(NotImplementedError):
-        tp.backend_eval(embs, ds, trials, enroll,
-                        dataclasses.replace(BackendConfig(), device_scoring=True))
+    cfg = dataclasses.replace(BackendConfig(), device_scoring=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tp.backend_eval(embs, ds, trials, enroll, cfg)
+    host, _ = tp.backend_eval(embs, ds, trials, enroll)
+    dev, _ = tp.backend_eval(embs, ds, trials, enroll, cfg, device="cpu")
+    assert dev.eer == host.eer

@@ -32,7 +32,7 @@ from sepi_tpu.recipes.pipeline import train_xvector_model as jtrain
 from sepi_tpu_torch.bridge import flax_variables_from_state_dict, xvector_state_dict_from_flax
 from sepi_tpu_torch.config import ChunkConfig, ExtractConfig, OptimizerConfig, TrainConfig
 from sepi_tpu_torch.data import make_synthetic_corpus
-from sepi_tpu_torch.models import TdnnSpec, XVectorConfig
+from sepi_tpu_torch.models import TdnnSpec, XVectorConfig, compute_dtype
 from sepi_tpu_torch.recipes import (
     backend_eval,
     extract_and_score,
@@ -127,6 +127,11 @@ def test_training_entry_point_refuses_cpu_fallback(data, monkeypatch):
         train_xvector_model(feats, tc.dataset, num_steps=1)
     with pytest.raises(NotImplementedError, match="mesh"):
         train_xvector_model(feats, tc.dataset, num_steps=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        train_xvector_model(feats, tc.dataset, num_steps=1, device="cpu",
-                            train_cfg=TrainConfig(compute_dtype="bfloat16"))
+    tcfg = XVectorConfig(feat_dim=23, num_speakers=6, embed_dim=32,
+                         frame_specs=tuple(TdnnSpec(d, o) for d, o in SPECS))
+    bf16 = TrainConfig(chunks=ChunkConfig(**CHUNKS), compute_dtype="bfloat16", **TRAIN)
+    model, _, _ = train_xvector_model(feats, tc.dataset, tcfg, bf16, num_steps=1, device="cpu")
+    assert compute_dtype(model) == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TrainConfig(compute_dtype="float16")
