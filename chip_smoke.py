@@ -93,6 +93,24 @@ non-zero:
      PLDA training and backend_eval(device_scoring=True) on phase 9's
      embeddings against the host, and streaming_embed on a 60,000-frame
      stream against whole-utterance pooling.
+ 12. the command line on the card, in-process through `cli.main(argv)`:
+     a. phase 9's corpus v2 written as Kaldi data dirs of WAVs (train with
+        `text` and one `segments` cut, enroll, eval, trials, lexicon, MUSAN
+        and RIR trees) with the port's own writers; b. `v2` at the default
+        widths with phase 9's steps and augmentation; c. `v3` through the
+        s5 stage with `--fmllr`; each EER below its initial weights' under
+        the same backend, seconds per stage; d. export-kaldi of b's final
+        checkpoint, `python -m sepi_tpu_torch import-kaldi` in a process of
+        its own, 64 eval embeddings within 1e-4 of the trained model's, the
+        model b evaluated, exported from the card, byte-equal to a host
+        export of the checkpoint-tail average it was combined from under
+        its recomputed batch-norm statistics, the imported forward and the nnet2 fixture's posteriors on the card
+        within 1e-4 of the CPU's, the Kaldi fixtures through import-kaldi/export-kaldi; e. the
+        gauntlet (`--scale ci --variants v2,v5 --bootstrap 200`) with the
+        reference's pins (0.05 < EER(v2) < 0.30, EER(v5) <= EER(v2) - 0.02).
+        Every MFCC batch within 2e-3 of the plain version, the largest
+        Viterbi batch of each (T, S, skip) with equal backpointers; wall
+        seconds against a 200 s budget.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -2538,6 +2556,482 @@ def phase_device_backend(env, drv, device="cuda", dims=(PLDA_DIM, PLDA_MODELS, P
 
 
 
+# 12: the command line on the card.  The round trip through Kaldi's nnet3
+# format folds each batch norm's scale into the written variance in float64
+# and reads it back in float32: one rounding per layer, so the round-tripped
+# embeddings sit ~1e-6 of their scale from the trained model's.
+P12_BUDGET_S = 200.0  # phase 12's wall, reported against this budget
+P12_EMBED_UTTS = 64
+INTEROP_TOL = 1e-4  # round-tripped embeddings vs the trained model's, of the embedding scale
+P12_CARD_TOL = 1e-4  # nnet3 forward and nnet2 posteriors on the card vs the CPU (TF32 off)
+P12_BOOTSTRAP = 200
+GAUNTLET_V2_WINDOW = (0.05, 0.30)  # tests/test_gauntlet.py:57-70
+GAUNTLET_V5_MARGIN = 0.02
+
+
+def _write_kaldi_corpus(root, corpus):
+    """Phase 9's corpus v2 as Kaldi data dirs of WAVs (the port's own
+    writers): train (with `text`, and one utterance cut from a longer
+    recording by a `segments` row), enroll (each eval speaker's enrollment
+    utterances), eval (the rest), the trials and the lexicon; and phase
+    9's augmentation pools as MUSAN-style and RIR WAV trees."""
+    import numpy as np
+
+    from sepi_tpu_torch.data import Dataset, save_trials, write_kaldi_dir, write_wav
+
+    trn, evl = corpus["train"], corpus["eval"]
+    wavs = os.path.join(root, "wav")
+    os.makedirs(wavs)
+
+    def put(name, ds, audio, segment=None):
+        utts = []
+        for u in ds:
+            p = os.path.join(wavs, f"{u.utt_id}.wav")
+            x = audio[u.utt_id]
+            if u.utt_id == segment:
+                # 0.5 s of silence on each side; the row cuts the utterance back out
+                pad = np.zeros(4000, np.float32)
+                write_wav(p, np.concatenate([pad, x, pad]), SR)
+                utts.append(u.replace(wav=p, recording=f"rec-{u.utt_id}", start=0.5,
+                                      end=0.5 + len(x) / SR))
+            else:
+                write_wav(p, x, SR)
+                utts.append(u.replace(wav=p))
+        d = os.path.join(root, name)
+        write_kaldi_dir(Dataset(utts, name), d)
+        return d
+
+    # an utterance whose length is a whole number of segments-file steps
+    # (0.01 s = 80 samples), so the cut gives back exactly its samples
+    segment = next(u for u in trn.dataset.utt_ids if len(trn.audio[u]) % 80 == 0)
+    dirs = {"train": put("train", trn.dataset, trn.audio, segment)}
+    enrolled = {u for us in corpus["enroll"].values() for u in us}
+    dirs["enroll"] = put("enroll", evl.dataset.filter(lambda u: u.utt_id in enrolled),
+                         evl.audio)
+    dirs["eval"] = put("eval", evl.dataset.filter(lambda u: u.utt_id not in enrolled),
+                       evl.audio)
+    dirs["trials"] = os.path.join(root, "trials")
+    save_trials(corpus["trials"], dirs["trials"])
+    dirs["text"] = os.path.join(dirs["train"], "text")
+    with open(dirs["text"], "w") as f:
+        for u in sorted(trn.transcripts):
+            f.write(f"{u} {' '.join(trn.transcripts[u])}\n")
+    dirs["lexicon"] = os.path.join(root, "lexicon.txt")
+    with open(dirs["lexicon"], "w") as f:
+        for w in sorted(trn.lexicon.pron):
+            f.write(f"{w} {' '.join(trn.lexicon.pron[w])}\n")
+    aug = _p9_augments(trn)
+    dirs["musan"] = os.path.join(root, "musan")
+    for kind, sub in (("noise", "noise"), ("music", "music"), ("babble", "speech")):
+        os.makedirs(os.path.join(dirs["musan"], sub))
+        for i, x in enumerate(aug.noises[kind]):
+            write_wav(os.path.join(dirs["musan"], sub, f"{sub}{i}.wav"), x, SR)
+    dirs["rirs"] = os.path.join(root, "rirs")
+    os.makedirs(dirs["rirs"])
+    for i, rir in enumerate(aug.rirs):
+        write_wav(os.path.join(dirs["rirs"], f"rir{i}.wav"), rir * 20000.0, SR)
+    dirs["aug_subset"] = aug.subset
+    return dirs, segment
+
+
+def phase_cli(env, corpus, device="cuda", v2_steps=P9_V2_STEPS, v3_steps=P9_STEPS,
+              bootstrap=P12_BOOTSTRAP, configs=None, embed_utts=P12_EMBED_UTTS, pins=True):
+    """Phase 12: the command line, in-process through `cli.main(argv)` as a
+    user types it.  12a writes phase 9's corpus to Kaldi data dirs; 12b runs
+    `v2` and 12c `v3` (s5 stage with fMLLR) on them at the drivers' default
+    widths, each beside its initial weights under the same backend; 12d
+    exports 12b's final checkpoint to a Kaldi `final.raw`, imports it back
+    with a `python -m sepi_tpu_torch` process and holds the embeddings, the
+    export's bytes and the card against the CPU, then takes the repo's Kaldi
+    fixtures through import-kaldi/export-kaldi; 12e runs the gauntlet at
+    ``--scale ci`` (v2 and v5, paired bootstrap) and holds the reference's
+    pins, which are calibrated for that scale.  Every MFCC batch and the
+    largest Viterbi batch of each (T, S, skip) are held against the plain
+    versions.  ``configs`` maps a driver to narrow model configs for a CPU
+    rehearsal (None keeps the default widths the command line uses);
+    ``pins`` holds the gauntlet's calibrated window, which a rehearsal that
+    swaps in a tiny CI_SCALE does not reach."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+
+    from sepi_tpu_torch import cli
+    from sepi_tpu_torch.align import mono, viterbi_cuda
+    from sepi_tpu_torch.config import ExtractConfig, TrainConfig
+    from sepi_tpu_torch.data import read_wav
+    from sepi_tpu_torch.models import lecun_normal_init
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.recipes import drivers, gauntlet, pipeline
+
+    configs = configs or {}
+    root = os.path.join(ROOT, "build", "smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    problems, wall = [], {}
+    dev = ["--device", str(device)]
+    t0 = time.perf_counter()
+
+    # 12a: the Kaldi data directories
+    dirs, segment = _write_kaldi_corpus(os.path.join(root, "data"), corpus)
+    ds, audio = cli._load_corpus(dirs["train"], SR)
+    padded, _ = read_wav(ds[segment].wav)
+    if not (np.array_equal(audio[segment], padded[4000:-4000])
+            and len(audio[segment]) == len(corpus["train"].audio[segment])
+            and ds[segment].recording == f"rec-{segment}"):
+        problems.append(f"12a: {segment}'s segments row did not cut its samples back out")
+    if set(audio) != set(corpus["train"].audio):
+        problems.append("12a: the train dir does not read back every utterance")
+    wall["12a"] = time.perf_counter() - t0
+
+    data = ["--train-data", dirs["train"], "--enroll-data", dirs["enroll"],
+            "--eval-data", dirs["eval"], "--trials", dirs["trials"]]
+
+    # what the drivers hand to extraction and the backend, their results,
+    # every MFCC batch and the largest Viterbi batch of each (T, S, skip)
+    calls, results, captured = {}, {}, {}
+    orig_x, orig_b = pipeline.extract_and_score, pipeline.backend_eval
+    orig_viterbi = mono.viterbi_batch
+    orig_run = {k: getattr(drivers, k) for k in ("run_v2", "run_v3")}
+    orig_gauntlet = gauntlet.run_gauntlet
+    current = [None]
+
+    def cap_x(model, state, features, extract_cfg=ExtractConfig(), min_frames=15,
+              model_kwargs=None, mesh=None, device="cuda"):
+        out = orig_x(model, state, features, extract_cfg, min_frames, model_kwargs, mesh, device)
+        calls.setdefault(current[0], {}).setdefault("extract", []).append(
+            (model, features, extract_cfg, min_frames, model_kwargs, out))
+        return out
+
+    def cap_b(*args, **kw):
+        out = orig_b(*args, **kw)
+        calls.setdefault(current[0], {})["backend"] = (args, kw, out)
+        return out
+
+    def cap_viterbi(emit, t_len, trans, skip=4):
+        key = (emit.shape[1], emit.shape[2], skip)
+        held = captured.get(key)
+        if held is None or emit.shape[0] > held[0].shape[0]:
+            captured[key] = (emit.clone(), t_len.clone(), trans.clone(), skip)
+        return orig_viterbi(emit, t_len, trans, skip)
+
+    def keep(name):
+        def run(*args, **kw):
+            kw.update(configs.get(name, {}))
+            out = orig_run[name](*args, **kw)
+            results[current[0]] = out
+            return out
+        return run
+
+    def keep_gauntlet(*args, **kw):
+        out = orig_gauntlet(*args, **kw)
+        results["gauntlet"] = out
+        return out
+
+    tee = _Tee(sys.stdout)
+    pipeline.extract_and_score, pipeline.backend_eval = cap_x, cap_b
+    mono.viterbi_batch = cap_viterbi
+    for name in orig_run:
+        setattr(drivers, name, keep(name))
+    gauntlet.run_gauntlet = keep_gauntlet
+    try:
+        mfcc_cuda.mfcc_fused.launches = 0
+        viterbi_cuda.viterbi_batch.launches = 0
+        with contextlib.redirect_stdout(tee), _MfccCapture() as cap:
+            # 12b: v2 with phase 9's steps and augmentation pools, from WAV trees
+            current[0] = "v2"
+            tb = time.perf_counter()
+            rc = cli.main(["v2", *data, "--workdir", os.path.join(root, "v2"),
+                           "--num-steps", str(v2_steps), "--musan-dir", dirs["musan"],
+                           "--rirs-dir", dirs["rirs"], "--aug-subset", str(dirs["aug_subset"]),
+                           *dev])
+            wall["12b"] = time.perf_counter() - tb
+            if rc != 0:
+                problems.append(f"12b: v2 exited {rc}")
+            # 12c: v3 through the s5 stage with the speaker-adaptive pass
+            current[0] = "v3"
+            tc = time.perf_counter()
+            rc = cli.main(["v3", *data, "--workdir", os.path.join(root, "v3"),
+                           "--num-steps", str(v3_steps), "--text", dirs["text"],
+                           "--lexicon", dirs["lexicon"], "--fmllr", *dev])
+            wall["12c"] = time.perf_counter() - tc
+            if rc != 0:
+                problems.append(f"12c: v3 exited {rc}")
+            launches_bc = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
+                           "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
+
+            # 12d: Kaldi interop, then 12e, outside the capture hooks
+            pipeline.extract_and_score, pipeline.backend_eval = orig_x, orig_b
+            for name, fn in orig_run.items():
+                setattr(drivers, name, fn)
+            td = time.perf_counter()
+            interop = _p12_interop(env, root, calls, device, dev, problems, embed_utts)
+            wall["12d"] = time.perf_counter() - td
+
+            # 12e: the gauntlet through the command line
+            current[0] = "gauntlet"
+            te = time.perf_counter()
+            rc = cli.main(["gauntlet", "--scale", "ci", "--variants", "v2,v5",
+                           "--bootstrap", str(bootstrap), "--workdir",
+                           os.path.join(root, "gauntlet"), *dev])
+            wall["12e"] = time.perf_counter() - te
+            if rc != 0:
+                problems.append(f"12e: gauntlet exited {rc}")
+        launches = {"mfcc_fused": mfcc_cuda.mfcc_fused.launches,
+                    "viterbi_batch": viterbi_cuda.viterbi_batch.launches}
+    finally:
+        pipeline.extract_and_score, pipeline.backend_eval = orig_x, orig_b
+        mono.viterbi_batch = orig_viterbi
+        for name, fn in orig_run.items():
+            setattr(drivers, name, fn)
+        gauntlet.run_gauntlet = orig_gauntlet
+    text = "".join(tee.lines)
+
+    if device != "cpu" and min(launches_bc.values()) <= 0:
+        problems.append(f"12b-12c did not launch every kernel: {launches_bc}")
+    if device != "cpu" and launches["mfcc_fused"] <= launches_bc["mfcc_fused"]:
+        problems.append("12d-12e launched no MFCC kernel")
+
+    # 12b/12c: the reports, the files, and each system beside its initial weights
+    initial, res = {}, {}
+    for k in ("v2", "v3"):
+        r = results.get(k)
+        if r is None:
+            problems.append(f"{k}: no result")
+            continue
+        res[k] = r.pooled
+        w = os.path.join(root, k)
+        if "pooled" not in r.report or r.report.strip() not in text:
+            problems.append(f"{k}: the report was not printed")
+        for f in ("xvector.scp", "det_pooled.svg", "metrics.jsonl"):
+            if not os.path.exists(os.path.join(w, f)):
+                problems.append(f"{k}: no {f} in the workdir")
+        c = calls[k]
+        model = c["extract"][0][0]
+        m0 = type(model)(model.cfg)
+        lecun_normal_init(m0, TrainConfig().seed)  # the command line's seed
+        m0 = m0.to(device).eval()
+        embs0 = [orig_x(m0, None, f, ec, mf, kw, device=device)
+                 for _, f, ec, mf, kw, _ in c["extract"]]
+        args, kw, _ = c["backend"]
+        initial[k] = orig_b(embs0[0], *args[1:], **kw)[0]
+        if not r.pooled.eer < initial[k].eer:
+            problems.append(f"{k}: unseen-speaker EER {100 * r.pooled.eer:.3f}% not below its "
+                            f"initial weights' {100 * initial[k].eer:.3f}%")
+
+    # 12e: the reference's pins
+    g = results.get("gauntlet", {})
+    eer = {k: r.pooled.eer for k, r in g.items()}
+    lo, hi = GAUNTLET_V2_WINDOW
+    boot = [line.strip() for line in text.splitlines() if line.startswith("bootstrap:")]
+    if set(eer) != {"v2", "v5"}:
+        problems.append(f"12e: gauntlet results {sorted(eer)}")
+    elif pins:
+        if not lo < eer["v2"] < hi:
+            problems.append(f"12e: v2 EER {eer['v2']:.4f} outside ({lo}, {hi})")
+        if not eer["v5"] <= eer["v2"] - GAUNTLET_V5_MARGIN:
+            problems.append(f"12e: v5 EER {eer['v5']:.4f} not {GAUNTLET_V5_MARGIN} below v2's "
+                            f"{eer['v2']:.4f}")
+    if bootstrap and not boot:
+        problems.append("12e: no bootstrap line")
+
+    # every MFCC batch of the phase against the plain version; the Viterbi
+    # on the largest batch of each (T, S, skip)
+    mfcc_shapes = sorted({tuple(b[1].shape) for b in cap.batches})
+    n_mfcc = len(cap.batches)
+    mfcc_err = max([e for _, e in cap.check(problems, "phase 12 batch").values()] + [0.0])
+    viterbi_err, viterbi_shapes = 0.0, sorted(captured)
+    if device != "cpu":
+        for (t, s, skip), a in sorted(captured.items()):
+            viterbi_err = max(viterbi_err, _viterbi_check(
+                f"phase 12 batch T={t} S={s} skip {skip}", *a))
+    captured.clear()
+
+    total = time.perf_counter() - t0
+    stages = "; ".join(f"{k} " + ", ".join(f"{s} {v:.2f}" for s, v in results[k].seconds.items())
+                       for k in ("v2", "v3") if k in results)
+    log(f"phase 12 command line on {env['smi'] if env else device}: 12a Kaldi dirs of corpus v2 "
+        f"(train {len(audio)} WAVs, one cut by a segments row, enroll/eval/trials, text, "
+        f"lexicon, MUSAN/RIR trees) in {wall['12a']:.2f} s; "
+        + "; ".join(f"{k} EER {100 * res[k].eer:.3f}% minDCF08 {res[k].min_dcf08:.4f} (initial "
+                    f"weights {100 * initial[k].eer:.3f}%) in {wall['12' + ('b' if k == 'v2' else 'c')]:.2f} s"
+                    for k in res)
+        + f"; seconds per stage: {stages}; 12d {interop['line']}; 12e gauntlet --scale ci "
+        "v2,v5: " + ", ".join(f"{k} EER {100 * v:.3f}%" for k, v in eer.items())
+        + f" (pins {lo} < v2 < {hi}, v5 <= v2 - {GAUNTLET_V5_MARGIN}); "
+        + " | ".join(boot) + f"; launches 12b-12c {launches_bc}, whole phase {launches}; mfcc on "
+        f"the phase's {n_mfcc} batches {mfcc_shapes[:4]}{'...' if len(mfcc_shapes) > 4 else ''} "
+        f"max abs err {mfcc_err:.3e} <= {TOL}; viterbi on the largest batch of each (T, S, skip) "
+        f"{viterbi_shapes}: backpointers equal, live delta max abs err {viterbi_err:.3e}; wall s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in wall.items())
+        + f"; {total:.1f} s against its {P12_BUDGET_S:.0f} s budget "
+        f"({'within' if total <= P12_BUDGET_S else 'over'})")
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 12: " + "; ".join(problems))
+    return {"launches": launches, "launches_bc": launches_bc, "mfcc_err": mfcc_err,
+            "viterbi_err": viterbi_err, "viterbi_shapes": viterbi_shapes,
+            "eer": {k: r.eer for k, r in res.items()},
+            "eer_initial": {k: r.eer for k, r in initial.items()}, "gauntlet": eer,
+            "interop": interop, "wall": wall, "total": total}
+
+
+def _p12_interop(env, root, calls, device, dev, problems, embed_utts):
+    """12d: 12b's final checkpoint -> export-kaldi -> `python -m
+    sepi_tpu_torch import-kaldi` -> embeddings against the trained model's;
+    the export of the model 12b evaluated, taken from the card, against the
+    checkpoints' exports; the imported model's forward and the nnet2
+    fixture's posteriors on the card against the CPU; the Kaldi fixtures
+    through import-kaldi/export-kaldi."""
+    import glob
+    import json
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch import cli
+    from sepi_tpu_torch.device import fp32_math
+    from sepi_tpu_torch.models import Nnet2Config, Nnet2Multisplice
+    from sepi_tpu_torch.models.tdnn import TdnnSpec
+    from sepi_tpu_torch.recipes import nnet2_recipe, pipeline
+    from sepi_tpu_torch.utils import nnet3
+    from sepi_tpu_torch.utils.nnet3 import Nnet3ParseError
+
+    fix = os.path.join(ROOT, "tests", "fixtures", "kaldi_wire")
+    d = os.path.join(root, "interop")
+    os.makedirs(d)
+    ckpts = sorted(glob.glob(os.path.join(root, "v2", "ckpt", "ckpt_*.pt")),
+                   key=lambda p: int(p.rsplit("_", 1)[1][:-3]))
+    ckpt = ckpts[-1]
+    raw = os.path.join(d, "final.raw")
+    if cli.main(["export-kaldi", "--model", ckpt, "--arch", "v2", "--out", raw]) != 0:
+        problems.append("12d: export-kaldi failed")
+    state = cli.load_state_dict_file(ckpt)
+
+    # the model 12b evaluated, exported from its tensors on the card, against
+    # host exports of the checkpoints on disk.  The driver's checkpoint-tail
+    # combination keeps the final checkpoint's parameters or a uniform
+    # average of the last K (freshest first, train.checkpoint.
+    # combine_checkpoints); then finalize_batch_stats recomputes the batch
+    # norms' statistics, which no checkpoint holds.  So each candidate takes
+    # the evaluated model's statistics, and one must give its bytes.
+    live = calls["v2"]["extract"][0][0]
+    live_raw, cand_raw = os.path.join(d, "live.raw"), os.path.join(d, "cand.raw")
+    nnet3.export_kaldi_raw(live, "v2", live_raw)
+    live_bytes = open(live_raw, "rb").read()
+    names = [n for n, _ in live.named_parameters()]
+    stats = {k: v.cpu() for k, v in live.state_dict().items() if k not in names}
+    tail = [cli.load_state_dict_file(p) for p in reversed(ckpts[-10:])]
+    evaluated = None
+    for k, sd in enumerate(tail):
+        avg = ({n: (avg[n] * k + sd[n]) / (k + 1) for n in names} if k
+               else {n: sd[n] for n in names})
+        nnet3.export_kaldi_raw({**avg, **stats}, "v2", cand_raw)
+        if open(cand_raw, "rb").read() == live_bytes:
+            evaluated = k + 1
+            break
+    if evaluated is None:
+        problems.append(f"12d: the evaluated model's export equals no average of the last "
+                        f"{len(tail)} checkpoints' parameters under its batch-norm statistics")
+
+    # the import in a process of its own, as a user runs it
+    env_vars = dict(os.environ, PYTHONPATH=ROOT)
+    tp = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sepi_tpu_torch", "import-kaldi", "--raw", raw,
+                           "--out", os.path.join(d, "imp"), *dev],
+                          cwd=ROOT, env=env_vars, capture_output=True, text=True, timeout=600)
+    proc_s = time.perf_counter() - tp
+    if proc.returncode != 0 or "imported v2 model" not in proc.stdout:
+        problems.append(f"12d: python -m sepi_tpu_torch import-kaldi exited {proc.returncode}: "
+                        f"{proc.stderr[-400:]}")
+    meta = json.load(open(os.path.join(d, "imp", "meta.json")))
+    imported = cli.load_state_dict_file(os.path.join(d, "imp", "model.pt"))
+
+    # the trained model (the checkpoint's weights) and the imported one
+    model = calls["v2"]["extract"][0][0]
+    trained = type(model)(model.cfg)
+    trained.load_state_dict(state)
+    back = type(model)(model.cfg)
+    back.load_state_dict(imported)
+    if meta["arch"] != "v2" or meta["config"]["num_speakers"] != model.cfg.num_speakers:
+        problems.append(f"12d: meta.json {meta['arch']} {meta['config']['num_speakers']}")
+    _, feats, ec, mf, kw, _ = calls["v2"]["extract"][0]
+    subset = {u: feats[u] for u in sorted(feats)[:embed_utts]}
+    e_trained = pipeline.extract_and_score(trained.to(device).eval(), None, subset, ec, mf, kw,
+                                           device=device)
+    e_back = pipeline.extract_and_score(back.to(device).eval(), None, subset, ec, mf, kw,
+                                        device=device)
+    scale = max(float(np.abs(e).max()) for e in e_trained.values())
+    emb_err = max(float(np.abs(e_back[u] - e_trained[u]).max()) for u in subset) / scale
+    if not emb_err <= INTEROP_TOL:
+        problems.append(f"12d: round-tripped embeddings {emb_err:.3e} of scale from the "
+                        f"trained model's (limit {INTEROP_TOL})")
+
+    # the imported model's forward on the card against the CPU
+    x = torch.from_numpy(np.stack([f[:300] for f in list(subset.values())[:8]
+                                   if len(f) >= 300] or [next(iter(subset.values()))]))
+    with torch.no_grad(), fp32_math():
+        fwd = back.to(device).eval()(x.to(device))["embedding_a"].cpu()
+        fwd_cpu = back.cpu()(x)["embedding_a"]
+    fwd_err = float((fwd - fwd_cpu).abs().max()) / max(1.0, float(fwd_cpu.abs().max()))
+    if device != "cpu" and not fwd_err <= P12_CARD_TOL:
+        problems.append(f"12d: imported nnet3 forward on the card {fwd_err:.3e} from the CPU's")
+
+    # the repo's Kaldi fixtures through the command line; the one-block
+    # final.raw is no v1-v5 graph, and both packages refuse it
+    refused = None
+    try:
+        cli.main(["import-kaldi", "--raw", os.path.join(fix, "final.raw"),
+                  "--out", os.path.join(d, "fx_raw"), *dev])
+        problems.append("12d: the one-block fixture final.raw imported as a v1-v5 model")
+    except Nnet3ParseError as e:
+        refused = str(e).split(";")[0]
+    if cli.main(["import-kaldi", "--raw", os.path.join(fix, "final_nnet2.mdl"),
+                 "--out", os.path.join(d, "fx_nnet2"), *dev]) != 0:
+        problems.append("12d: the nnet2 fixture did not import")
+    n2meta = json.load(open(os.path.join(d, "fx_nnet2", "meta.json")))
+    cfg = n2meta["config"]
+    n2cfg = Nnet2Config(**dict(cfg, specs=tuple(TdnnSpec(s["dim"], tuple(s["offsets"]))
+                                                for s in cfg["specs"])))
+    n2state = cli.load_state_dict_file(os.path.join(d, "fx_nnet2", "model.pt"))
+    rng = np.random.default_rng(12)
+    n2feats = {f"u{i}": rng.normal(size=(50 + 37 * i, n2cfg.feat_dim)).astype(np.float32)
+               for i in range(6)}
+    post_d = nnet2_recipe.nnet2_posteriors(Nnet2Multisplice(n2cfg), n2state, n2feats,
+                                           device=device)
+    post_c = nnet2_recipe.nnet2_posteriors(Nnet2Multisplice(n2cfg), n2state, n2feats,
+                                           device="cpu")
+    post_err = max(float(np.abs(post_d[u] - post_c[u]).max()) for u in n2feats)
+    if not post_err <= P12_CARD_TOL:
+        problems.append(f"12d: nnet2 posteriors on {device} {post_err:.3e} from the CPU's")
+    for name in ("final.ie", "plda"):
+        out = os.path.join(d, f"fx_{name}")
+        cli.main(["import-kaldi", "--raw", os.path.join(fix, name), "--out", out])
+        cli.main(["export-kaldi", "--model", os.path.join(out, "model.npz"),
+                  "--out", os.path.join(out, name)])
+        cli.main(["import-kaldi", "--raw", os.path.join(out, name), "--out", out + "_back"])
+        a, b = np.load(os.path.join(out, "model.npz")), np.load(os.path.join(out + "_back",
+                                                                              "model.npz"))
+        for k in a.files:
+            if k != "kind" and not np.allclose(a[k], b[k], rtol=1e-6, atol=1e-6):
+                problems.append(f"12d: {name} {k} changed over export-kaldi/import-kaldi")
+    plda_exact = (open(os.path.join(d, "fx_plda", "plda"), "rb").read()
+                  == open(os.path.join(fix, "plda"), "rb").read())
+    if not plda_exact:
+        problems.append("12d: the plda fixture did not export back to its bytes")
+    line = (f"export-kaldi of {os.path.basename(ckpt)} -> final.raw ({os.path.getsize(raw)} "
+            f"bytes; the evaluated model exported from {device} is byte-equal to a host "
+            f"export of the {'final checkpoint' if evaluated == 1 else f'average of the last {evaluated} checkpoints'}"
+            f" under its recomputed batch-norm statistics) -> `python -m sepi_tpu_torch "
+            f"import-kaldi` ({proc_s:.1f} s) -> {len(subset)} eval embeddings {emb_err:.3e} of "
+            f"scale from the trained model's (limit {INTEROP_TOL}); imported forward on "
+            f"{device} vs CPU {fwd_err:.3e} (limit {P12_CARD_TOL}); fixtures: final.raw refused "
+            f"as the reference refuses it ({refused}), final_nnet2.mdl posteriors on {device} vs "
+            f"CPU {post_err:.3e}, final.ie and plda through import/export (plda bytes equal)")
+    return {"line": line, "emb_err": emb_err, "fwd_err": fwd_err, "post_err": post_err,
+            "process_s": proc_s, "evaluated": evaluated}
+
+
 def main() -> int:
     import torch
 
@@ -2601,6 +3095,7 @@ def main() -> int:
     log(f"phase 11 wall on {env['smi']}: 11a {t11[1] - t11[0]:.1f} s, 11b {t11[2] - t11[1]:.1f} s, "
         f"11c {t11[3] - t11[2]:.1f} s, 11d {t11[4] - t11[3]:.1f} s; {wall11:.1f} s against its "
         f"{P11_BUDGET_S:.0f} s budget ({'within' if wall11 <= P11_BUDGET_S else 'over'})")
+    cli_run = phase_cli(env, drv["corpus"])
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -2611,11 +3106,12 @@ def main() -> int:
     mfcc["launches_v1_path"] = v1["launches"]
     mfcc["launches_v1_dnn_path"] = dnn["launches"]
     mfcc["launches_bf16_driver_path"] = bf16["launches"]
+    mfcc["launches_cli_path"] = cli_run["launches"]["mfcc_fused"]
     mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
         {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
                           for c, (n, e) in dnn["mfcc"].items()}}.items())}
     mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"],
-                               bf16["mfcc_err"]]
+                               bf16["mfcc_err"], cli_run["mfcc_err"]]
                               + [e for _, e in v1["mfcc"].values()]
                               + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]
@@ -2627,7 +3123,10 @@ def main() -> int:
         "launches_cvector_path": cv_launches["viterbi_batch"],
         "launches_driver_path": drv["launches"]["viterbi_batch"],
         "shapes_driver_path": drv["viterbi_shapes"],
-        "max_abs_err": max(vit["max_abs_err"], s5["viterbi_err"], drv["viterbi_err"]),
+        "launches_cli_path": cli_run["launches"]["viterbi_batch"],
+        "shapes_cli_path": cli_run["viterbi_shapes"],
+        "max_abs_err": max(vit["max_abs_err"], s5["viterbi_err"], drv["viterbi_err"],
+                           cli_run["viterbi_err"]),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,

@@ -17,7 +17,12 @@ same inputs:
   DNN/i-vector variant with the p-norm nnet2 senone net, `run_v1`;
 - bf16 compute for every TDNN trainer and driver, the on-device backend
   (`backend.device`: PLDA scoring, LDA and PLDA EM in float32), z/t/s-norm,
-  score fusion and `extract.streaming_embed`.
+  score fusion and `extract.streaming_embed`;
+- the user-facing surface: the command line (`python -m sepi_tpu_torch`,
+  `cli`: v1-v5 on Kaldi data directories, prep-ldc/prep-asr with the
+  `data.{corpora,ldc,asr_prep}` walkers, import-kaldi/export-kaldi through
+  `utils.{nnet3,nnet2_io,kaldi_models}`) and the acceptance gauntlet
+  (`recipes.gauntlet`).
 Imports torch and numpy only; kernels build with nvcc at first use.
 """
 

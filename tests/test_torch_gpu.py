@@ -554,3 +554,85 @@ def test_streaming_embed_on_the_card_matches_whole_utterance(cuda):
                                                                        batch_size=1),
                               model.cfg.min_frames, device="cuda")["u"]
     np.testing.assert_allclose(streamed, whole, rtol=2e-3, atol=2e-3)
+
+
+def _cli_kaldi_dir(root):
+    """A Kaldi data dir of WAVs from a small phonetic corpus, its trials."""
+    from sepi_tpu_torch.data import (Dataset, make_phonetic_corpus, save_trials,
+                                     write_kaldi_dir, write_wav)
+
+    corpus = make_phonetic_corpus(num_speakers=4, utts_per_speaker=4, seed=41)
+    utts = []
+    for u in corpus.dataset:
+        p = str(root / f"{u.utt_id}.wav")
+        write_wav(p, corpus.audio[u.utt_id], 8000)
+        utts.append(u.replace(wav=p))
+    write_kaldi_dir(Dataset(utts, "cli"), str(root / "data"))
+    save_trials(corpus.trials, str(root / "trials"))
+    return str(root / "data"), str(root / "trials")
+
+
+def test_cli_v2_on_the_card(cuda, tmp_path, capsys):
+    """`v2` through the command line with its default device (the card)."""
+    from sepi_tpu_torch.cli import main
+
+    ddir, trials = _cli_kaldi_dir(tmp_path)
+    wd = str(tmp_path / "exp")
+    assert main(["v2", "--train-data", ddir, "--enroll-data", ddir, "--trials", trials,
+                 "--workdir", wd, "--num-steps", "20", "--min-chunk", "50", "--max-chunk", "100",
+                 "--chunk-buckets", "2", "--batch-size", "8"]) == 0
+    assert "pooled" in capsys.readouterr().out
+    for f in ("xvector.scp", "det_pooled.svg", "metrics.jsonl"):
+        assert (tmp_path / "exp" / f).exists()
+
+
+def test_cli_import_kaldi_forward_on_the_card(cuda, tmp_path):
+    """import-kaldi builds the model on the card; its forward matches the
+    CPU's within 1e-4 (TF32 off), and export-kaldi writes the bytes back."""
+    from sepi_tpu_torch.cli import load_state_dict_file, main
+    from sepi_tpu_torch.device import fp32_math
+    from sepi_tpu_torch.models import XVector, XVectorConfig
+    from sepi_tpu_torch.models.tdnn import TdnnSpec, lecun_normal_init
+    from sepi_tpu_torch.utils.nnet3 import export_kaldi_raw, import_kaldi_raw
+
+    cfg = XVectorConfig(num_speakers=7, embed_dim=32, frame_specs=(
+        TdnnSpec(64, (-2, -1, 0, 1, 2)), TdnnSpec(64, (-2, 0, 2)), TdnnSpec(64, (-3, 0, 3)),
+        TdnnSpec(64, (0,)), TdnnSpec(128, (0,))))
+    model = XVector(cfg)
+    lecun_normal_init(model, 5)
+    raw = str(tmp_path / "final.raw")
+    export_kaldi_raw(model, "v2", raw)
+    on_card, _, arch = import_kaldi_raw(raw)
+    assert arch == "v2" and next(on_card.parameters()).device.type == "cuda"
+    assert main(["import-kaldi", "--raw", raw, "--out", str(tmp_path / "imp")]) == 0
+    back = XVector(cfg)
+    back.load_state_dict(load_state_dict_file(str(tmp_path / "imp" / "model.pt")))
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(4, 200, 23)).astype(np.float32))
+    with torch.no_grad(), fp32_math():
+        card = back.to("cuda").eval()(x.cuda())["embedding_a"].cpu()
+        host = back.cpu()(x)["embedding_a"]
+    assert float((card - host).abs().max()) <= 1e-4 * max(1.0, float(host.abs().max()))
+    out = str(tmp_path / "back.raw")
+    assert main(["export-kaldi", "--model", str(tmp_path / "imp" / "model.pt"), "--arch", "v2",
+                 "--out", out]) == 0
+    assert open(out, "rb").read() == open(raw, "rb").read()
+
+
+def test_cli_gauntlet_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    """The gauntlet through the command line (v2 and v5, bootstrap) at a
+    tiny scale in place of CI_SCALE."""
+    from sepi_tpu_torch.cli import main
+    from sepi_tpu_torch.recipes import gauntlet
+
+    tiny = dataclasses.replace(
+        gauntlet.CI_SCALE, num_train_speakers=4, num_eval_speakers=4, num_adapt_speakers=2,
+        utts_per_speaker=4, eval_utts_per_speaker=5, enroll_utts=2, steps=6, am_steps=6,
+        frame_dim=12, pool_dim=16, embed_dim=8, am_dim=12, am_bottleneck=6, batch_size=4,
+        am_batch_size=16, align=dataclasses.replace(gauntlet.CI_SCALE.align, num_leaves=16,
+                                                    mono_iters=2, refine_iters=1,
+                                                    min_count=20.0))
+    monkeypatch.setattr(gauntlet, "CI_SCALE", tiny)
+    assert main(["gauntlet", "--variants", "v2,v5", "--bootstrap", "20",
+                 "--workdir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "v5 vs v2" in out and out.count("[gauntlet:") >= 2

@@ -46,6 +46,9 @@ V1_MODULES = ("classical", "classical.gmm", "classical.ivector", "models.nnet2",
               "recipes.ivector_recipe", "recipes.nnet2_recipe", "ops.deltas")
 # the bf16 and on-device backend slice's new modules
 BACKEND_MODULES = ("backend.device", "backend.normalize", "backend.fusion")
+# the command line, Kaldi model interop and gauntlet slice's new modules
+CLI_MODULES = ("cli", "__main__", "data.corpora", "data.ldc", "data.asr_prep", "utils.nnet3",
+               "utils.nnet2_io", "recipes.gauntlet")
 
 
 def _env():
@@ -62,7 +65,7 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     n, leaked, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and leaked == "[]", out.stdout
-    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES + BACKEND_MODULES) <= set(
+    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES + BACKEND_MODULES + CLI_MODULES) <= set(
         names.split(","))
 
 
