@@ -111,6 +111,20 @@ non-zero:
         Every MFCC batch within 2e-3 of the plain version, the largest
         Viterbi batch of each (T, S, skip) with equal backpointers; wall
         seconds against a 200 s budget.
+ 13. the device mesh (`sepi_tpu_torch.parallel`), its ranks spawned as
+     processes with a timeout: a. one rank over NCCL: dryrun_multichip(1)
+     and a full-width V2 DP step at 64 x 200 against the plain step, with
+     the median ms of each; b. two ranks sharing the card over gloo (NCCL
+     refuses a shared device): 3 momentum-SGD DP steps against one
+     process's steps on the global batch within rtol = atol = 2e-4, the
+     ranks bit-equal, a planted fault (batch-norm moments rank-local) that
+     must read above the limit, and the step ms; c. sharded extraction of
+     16 x 100 s, GMM statistics at 2048 x 60 (gselect 20, 2^17 frames) and
+     the PLDA trial matrix at 4096 x 4096 x 150, each against its
+     single-card function; d. run_v2 with a 2-rank mesh on phase 9's corpus
+     at phase 9's settings, the primary writing, its unseen-speaker EER
+     below phase 9's initial weights'.  Wall seconds against a 150 s
+     budget.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -3032,6 +3046,475 @@ def _p12_interop(env, root, calls, device, dev, problems, embed_utts):
             "process_s": proc_s, "evaluated": evaluated}
 
 
+# 13: the device mesh on the card.  The ranks are processes of one world
+# (`parallel.dryrun.launch`: spawned, killed at a timeout); two ranks share
+# the one card over gloo, since NCCL refuses two ranks on one device, and
+# NCCL runs at world size 1.
+P13_BUDGET_S = 150.0  # phase 13's wall, reported against this budget
+P13_TOL = 2e-4  # 13b: rtol = atol = 2e-4 on every parameter, the reference's
+# Trainer tolerance (tests/multiproc_worker.py:107-132); a reading is the
+# largest |p_2 - p_1| / (atol + rtol |p_1|), so the check holds at <= 1
+P13_STEPS, P13_TIMED = 3, 10
+P13_EXTRACT_TOL = 1e-5  # rtol = atol, tests/test_train.py:305-333
+P13_GMM = dict(comps=2048, gselect=20, dim=60, frames=1 << 17)  # the v1 UBM's E-step
+P13_GMM_TOL = 1e-4  # of each statistic's largest |entry|
+P13_RANK_TIMEOUT_S = 600.0
+
+
+def _p13_reading(got, want, tol=P13_TOL) -> float:
+    """The largest |got - want| / (tol + tol |want|) over parameters."""
+    return max(float(((got[k] - want[k]).abs() / (tol + tol * want[k].abs())).max())
+               for k in want)
+
+
+def _p13_ms(fn, dev, iters=P13_TIMED) -> float:
+    """Median ms of ``fn()``: CUDA events on the card, the wall clock on
+    the CPU (a rehearsal)."""
+    if dev.type == "cuda":
+        return time_ms(fn, iters=iters, warmup=2)
+    fn()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def _p13_sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _p13_batches(cfg, n=P13_STEPS):
+    """13a/13b's global batches: TRAIN_B chunks of TRAIN_T frames (11b's
+    recipe: labels from 16 speakers, a per-speaker-group offset)."""
+    return p11b_batches(cfg, batch=TRAIN_B)[:n]
+
+
+def _p13a_rank(out, cfg):
+    """13a, the one rank of an NCCL world: dryrun_multichip(1), then one
+    full-width DP step against the plain step from the same weights, and
+    the median ms of each."""
+    import torch
+
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.parallel import make_mesh
+    from sepi_tpu_torch.parallel.dryrun import dryrun_multichip
+    from sepi_tpu_torch.parallel.mesh import mesh_device
+    from sepi_tpu_torch.train import make_xvec_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = mesh_device(mesh)
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=dev.type)
+    dry_s = time.perf_counter() - t0
+    opt = OptimizerConfig(preconditioner="none", proportional_shrink=0.0)
+    (cm, sm), (cp, sp) = (_train_state(cfg, dev, opt, seed=3) for _ in range(2))
+    f, lab = (t.to(dev) for t in _p13_batches(cfg, 1)[0])
+    dp, plain = make_xvec_step(cm, mesh=mesh), make_xvec_step(cp)
+    dp(sm, f, lab, 1.0)
+    plain(sp, f, lab, 1.0)
+    reading = _p13_reading(_flat(sm.model), _flat(sp.model))
+    ms = {"dp": _p13_ms(lambda: dp(sm, f, lab, 1.0), dev),
+          "plain": _p13_ms(lambda: plain(sp, f, lab, 1.0), dev)}
+    with open(out, "w") as fh:
+        json.dump({"dryrun_s": dry_s, "reading": reading, "ms": ms,
+                   "backend": torch.distributed.get_backend()}, fh)
+
+
+def _p13b_rank(out_dir, cfg):
+    """13b, each of two ranks: P13_STEPS momentum-SGD DP steps from seed 3
+    on the global batches, then the same with the batch-norm moments left
+    rank-local (the planted fault), then the median step ms; each rank
+    saves its parameters."""
+    import contextlib
+
+    import torch
+
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.parallel import make_mesh
+    from sepi_tpu_torch.parallel.mesh import mesh_device
+    from sepi_tpu_torch.train import make_xvec_step
+    from sepi_tpu_torch.train import trainer as port_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = mesh_device(mesh)
+    rank = torch.distributed.get_rank()
+    batches = [(f.to(dev), lab.to(dev)) for f, lab in _p13_batches(cfg)]
+    opt = OptimizerConfig(preconditioner="none", proportional_shrink=0.0)
+    rec = {}
+    for kind in ("dp", "fault"):
+        chain, st = _train_state(cfg, dev, opt, seed=3)
+        step = make_xvec_step(chain, mesh=mesh)
+        real = port_trainer.sync_batch_norm
+        if kind == "fault":
+            port_trainer.sync_batch_norm = lambda model, group: contextlib.nullcontext()
+        try:
+            rec[kind] = [float(step(st, f, lab, 1.0)["objf"]) for f, lab in batches]
+        finally:
+            port_trainer.sync_batch_norm = real
+        torch.save(_flat(st.model), os.path.join(out_dir, f"{kind}.{rank}.pt"))
+    f, lab = batches[0]
+    rec["ms"] = _p13_ms(lambda: step(st, f, lab, 1.0), dev)
+    with open(os.path.join(out_dir, f"b.{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def _p13c_inputs(device, small=False):
+    """13c's inputs from seeds: 16 x 100 s of features and a seeded
+    full-width V2 x-vector; 2^17 60-dim frames from a 2048-component mixture
+    and its diag GMM; a 150-dim PLDA with 4096 x 4096 models and tests.
+    ``small`` shrinks every size for a CPU rehearsal."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.backend.plda import Plda
+    from sepi_tpu_torch.classical.gmm import DiagGmm
+    from sepi_tpu_torch.models import V2_XVECTOR
+
+    rng = np.random.default_rng(13)
+    frames_per_utt = int(BENCH_SECS * 100) // (20 if small else 1)
+    cfg = dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    model = random_xvector(cfg, 5, device)
+    feats = {f"u{i:02d}": rng.normal(size=(frames_per_utt, 23)).astype(np.float32)
+             for i in range(BENCH_B)}
+    g = dict(P13_GMM, frames=1 << 12, comps=64) if small else P13_GMM
+    centers = rng.normal(size=(g["comps"], g["dim"])).astype(np.float32) * 2
+    frames = (centers[rng.integers(0, g["comps"], g["frames"])]
+              + rng.normal(size=(g["frames"], g["dim"]))).astype(np.float32)
+    gmm = DiagGmm(torch.full((g["comps"],), 1.0 / g["comps"], device=device),
+                  torch.from_numpy(centers + 0.3 * rng.normal(size=centers.shape).astype(
+                      np.float32)).to(device),
+                  torch.from_numpy((0.8 + 0.4 * rng.random(centers.shape)).astype(
+                      np.float32)).to(device))
+    d, m, n = (16, 64, 48) if small else (PLDA_DIM, PLDA_MODELS, PLDA_TESTS)
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    plda = Plda(mean=rng.normal(size=d) * 0.1, transform=q * (0.5 + rng.random(d))[:, None],
+                psi=np.sort(rng.random(d) * 4)[::-1].copy())
+    enroll = rng.normal(size=(m, d)).astype(np.float32)
+    test = rng.normal(size=(n, d)).astype(np.float32)
+    num_utts = rng.integers(1, 4, size=m).astype(np.float32)
+    return {"model": model, "min_frames": cfg.min_frames, "feats": feats, "gmm": gmm,
+            "frames": torch.from_numpy(frames).to(device), "gselect": g["gselect"],
+            "plda": plda, "enroll": enroll, "test": test, "num_utts": num_utts}
+
+
+def _p13c_rank(out_dir, small):
+    """13c, each of two ranks: sharded extraction, GMM statistics and PLDA
+    scoring on 13c's inputs, each timed after a warm-up; rank 0 saves
+    the results."""
+    import torch
+
+    from sepi_tpu_torch.backend.device import plda_score_matrix_sharded
+    from sepi_tpu_torch.classical.gmm import accumulate_stats_sharded
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+    from sepi_tpu_torch.parallel import make_mesh
+    from sepi_tpu_torch.parallel.mesh import mesh_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = mesh_device(mesh)
+    inp = _p13c_inputs(dev, small)
+    ext = EmbeddingExtractor(inp["model"], ExtractConfig(), min_frames=inp["min_frames"],
+                             mesh=mesh)
+    calls = {
+        "extract": lambda: ext.extract_utterances(inp["feats"]),
+        "gmm": lambda: accumulate_stats_sharded(inp["gmm"], inp["frames"], mesh,
+                                                num_gselect=inp["gselect"]),
+        "plda": lambda: plda_score_matrix_sharded(inp["plda"], inp["enroll"], inp["test"], mesh,
+                                                  inp["num_utts"]),
+    }
+    res, secs = {}, {}
+    for name, fn in calls.items():
+        fn()
+        _p13_sync(dev)
+        t = time.perf_counter()
+        res[name] = fn()
+        _p13_sync(dev)
+        secs[name] = time.perf_counter() - t
+    if torch.distributed.get_rank() == 0:
+        s = res["gmm"]
+        torch.save({"emb": res["extract"], "secs": secs, "plda": res["plda"].cpu(),
+                    "gmm": [a.cpu() for a in (s.gamma, s.first, s.second)]},
+                   os.path.join(out_dir, "c.pt"))
+
+
+def _p13d_rank(out_dir, corpus_path, v2_steps, train_cfg, configs):
+    """13d, each of two ranks: phase 9's run_v2 (augmentation, mean-only
+    PLDA adaptation, ``v2_steps`` steps) with the mesh, reading the corpus
+    the parent wrote; every MFCC batch of the primary held against the
+    plain version; each rank's file writes counted."""
+    import pickle
+
+    import torch
+
+    from sepi_tpu_torch.config import BackendConfig, TrainConfig
+    from sepi_tpu_torch.data import featstore
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.parallel import make_mesh
+    from sepi_tpu_torch.parallel.mesh import mesh_device
+    from sepi_tpu_torch.recipes import drivers, pipeline
+    from sepi_tpu_torch.utils import ArkWriter, kaldi_models
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = mesh_device(mesh)
+    rank = torch.distributed.get_rank()
+    with open(corpus_path, "rb") as fh:
+        corpus = pickle.load(fh)
+    trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
+    writes = {}
+
+    def counted(owner, name, label):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            writes[label] = writes.get(label, 0) + 1
+            return fn(*a, **kw)
+        setattr(owner, name, wrapper)
+
+    counted(ArkWriter, "__init__", "ark")
+    counted(kaldi_models, "write_plda", "plda")
+    counted(pipeline, "save_checkpoint", "checkpoint")
+    counted(featstore.FeatStore, "write_stream", "store")
+    mfcc_cuda.mfcc_fused.launches = 0
+    t0 = time.perf_counter()
+    with _MfccCapture() as cap:
+        res = drivers.run_v2(
+            trn.dataset, trn.audio, evl.dataset, evl.audio, corpus["trials"], corpus["enroll"],
+            os.path.join(out_dir, "run"), num_steps=v2_steps, augments=_p9_augments(trn),
+            adapt_dataset=adp.dataset, adapt_audio=adp.audio,
+            backend_cfg=BackendConfig(**P9_ADAPT_BACKEND), train_cfg=train_cfg or TrainConfig(),
+            mesh=mesh, device=dev.type, **configs)
+    secs = time.perf_counter() - t0
+    launches = mfcc_cuda.mfcc_fused.launches
+    problems = []
+    checked = cap.check(problems, "13d") if dev.type == "cuda" else {}
+    with open(os.path.join(out_dir, f"d.{rank}.json"), "w") as fh:
+        json.dump({"eer": res.pooled.eer, "min_dcf08": res.pooled.min_dcf08, "secs": secs,
+                   "seconds": res.seconds, "launches": launches, "writes": writes,
+                   "mfcc": {str(k): v for k, v in checked.items()}, "problems": problems,
+                   "num_scores": len(res.scores),
+                   "scores_sum": float(sum(res.scores.values()))}, fh)
+
+
+def mesh_steps(root, cfg, dev, ranks, backend, label, width, timing_note):
+    """13b's check on ``ranks`` ranks over ``backend``: P13_STEPS DP steps
+    against one process's steps on the global batch (the reading, limit 1),
+    rank 0 bit-equal to every other rank, the planted fault above the
+    limit, and each rank's median step ms.  Returns the readings, the step
+    ms and the problems found."""
+    import torch
+
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.parallel.dryrun import launch
+    from sepi_tpu_torch.train import make_xvec_step
+
+    t = time.perf_counter()
+    launch(ranks, _p13b_rank, (root, cfg), device=dev.type, backend=backend,
+           timeout_s=P13_RANK_TIMEOUT_S)
+    opt = OptimizerConfig(preconditioner="none", proportional_shrink=0.0)
+    chain, st = _train_state(cfg, dev, opt, seed=3)
+    step = make_xvec_step(chain)
+    objf1 = [float(step(st, f.to(dev), lab.to(dev), 1.0)["objf"]) for f, lab in
+             _p13_batches(cfg)]
+    want = _flat(st.model)
+    got = {k: torch.load(os.path.join(root, f"{k}.0.pt")) for k in ("dp", "fault")}
+    equal = all(all(torch.equal(got["dp"][k], v) for k, v in torch.load(
+        os.path.join(root, f"dp.{r}.pt")).items()) for r in range(1, ranks))
+    recs = []
+    for r in range(ranks):
+        with open(os.path.join(root, f"b.{r}.json")) as fh:
+            recs.append(json.load(fh))
+    read_dp, read_fault = _p13_reading(got["dp"], want), _p13_reading(got["fault"], want)
+    problems = []
+    if not (read_dp <= 1.0 < read_fault and equal):
+        problems.append(f"{label}: DP steps read {read_dp:.3e}, the fault {read_fault:.3e}, "
+                        f"ranks bit-equal {equal}")
+    ms = [r["ms"] for r in recs]
+    log(f"phase 13b {label}: {P13_STEPS} momentum-SGD DP steps of the {width} at {TRAIN_B} x "
+        f"{TRAIN_T} ({TRAIN_B // ranks} chunks a rank) against one process's steps on the "
+        f"global batch: reading {read_dp:.3e} (limit 1: rtol = atol = {P13_TOL}, the "
+        f"reference's Trainer tolerance); the ranks' parameters bit-equal {equal}; planted "
+        f"fault (batch-norm moments rank-local) {read_fault:.3e} (must exceed 1); objf "
+        f"{ranks} ranks {[round(x, 5) for x in recs[0]['dp']]}, 1 process "
+        f"{[round(x, 5) for x in objf1]}, fault {[round(x, 5) for x in recs[0]['fault']]}; "
+        f"median step " + " / ".join(f"{x:.3f}" for x in ms) + f" ms ({timing_note}); "
+        f"{time.perf_counter() - t:.1f} s")
+    return {"reading": read_dp, "fault": read_fault, "equal": equal, "ms": ms,
+            "problems": problems}
+
+
+def phase_mesh(env, drv, device="cuda", cfg=None, v2_steps=P9_V2_STEPS, train_cfg=None,
+               configs=None, small=False, workdir=None):
+    """Phase 13: the device mesh on the card.  13a one rank over NCCL
+    (dryrun_multichip(1), a DP step against the plain step and their
+    times); 13b two ranks sharing the card over gloo (3 DP steps against
+    one process's steps on the global batch, the ranks bit-equal, a
+    planted fault that must read above the limit, the step time); 13c the
+    sharded extraction, GMM statistics and PLDA scoring against their
+    single-card counterparts; 13d run_v2 on phase 9's corpus with a 2-rank
+    mesh, its unseen-speaker EER below phase 9's initial weights'.  ``cfg``
+    narrows the x-vector, ``small`` 13c's sizes and ``configs`` 13d's
+    model, for a CPU rehearsal (``device="cpu"``: gloo everywhere)."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.backend.device import plda_score_matrix_device
+    from sepi_tpu_torch.classical.gmm import accumulate_stats
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+    from sepi_tpu_torch.models import V2_XVECTOR
+    from sepi_tpu_torch.parallel.dryrun import launch
+
+    dev = torch.device(device)
+    width = "full-width V2" if cfg is None else "narrow x-vector"
+    cfg = cfg or dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    root = workdir or os.path.join(ROOT, "build", "smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    where = env["smi"] if env else device
+    problems, wall = [], {}
+    gloo = dict(device=device, backend="gloo", timeout_s=P13_RANK_TIMEOUT_S)
+
+    # 13a: NCCL at world size 1
+    t = time.perf_counter()
+    launch(1, _p13a_rank, (os.path.join(root, "a.json"), cfg), device=device,
+           backend=None if dev.type == "cuda" else "gloo", timeout_s=P13_RANK_TIMEOUT_S)
+    with open(os.path.join(root, "a.json")) as fh:
+        a = json.load(fh)
+    wall["13a"] = time.perf_counter() - t
+    if not a["reading"] <= 1.0:
+        problems.append(f"13a: the DP step reads {a['reading']:.3e} against the plain step")
+    log(f"phase 13a {a['backend']} world of 1 on {where}: dryrun_multichip(1) passed in "
+        f"{a['dryrun_s']:.1f} s; {width} ({cfg.num_speakers} speakers) at {TRAIN_B} x "
+        f"{TRAIN_T} x 23, momentum SGD: the DP step against the plain step from the same "
+        f"weights reads {a['reading']:.3e} (limit 1, rtol = atol = {P13_TOL}); median step "
+        f"{a['ms']['dp']:.3f} ms over the mesh, {a['ms']['plain']:.3f} ms plain (difference "
+        f"{a['ms']['dp'] - a['ms']['plain']:+.3f} ms: the mesh machinery); {wall['13a']:.1f} s")
+
+    # 13b: two ranks share the card over gloo, against one process's steps
+    t = time.perf_counter()
+    b = mesh_steps(root, cfg, dev, 2, "gloo", f"2 gloo ranks sharing one card on {where}", width,
+                   "2 ranks sharing one card: overhead, not scaling")
+    wall["13b"] = time.perf_counter() - t
+    problems += b["problems"]
+
+    # 13c: the sharded back-end work against the single-card functions
+    t = time.perf_counter()
+    launch(2, _p13c_rank, (root, small), **gloo)
+    c = torch.load(os.path.join(root, "c.pt"), weights_only=False)
+    inp = _p13c_inputs(dev, small)
+    ext1 = EmbeddingExtractor(inp["model"], ExtractConfig(), min_frames=inp["min_frames"],
+                              device=dev)
+    calls = {
+        "extract": lambda: ext1.extract_utterances(inp["feats"]),
+        "gmm": lambda: accumulate_stats(inp["gmm"], inp["frames"], num_gselect=inp["gselect"]),
+        "plda": lambda: plda_score_matrix_device(inp["plda"], inp["enroll"], inp["test"],
+                                                 inp["num_utts"], device=dev),
+    }
+    single, one = {}, {}
+    for name, fn in calls.items():  # timed after a warm-up, as the ranks time theirs
+        fn()
+        _p13_sync(dev)
+        tc = time.perf_counter()
+        one[name] = fn()
+        _p13_sync(dev)
+        single[name] = time.perf_counter() - tc
+    emb1, s1, llr1 = one["extract"], one["gmm"], one["plda"]
+    emb_ok = set(c["emb"]) == set(emb1) and all(
+        np.allclose(c["emb"][u], emb1[u], rtol=P13_EXTRACT_TOL, atol=P13_EXTRACT_TOL)
+        for u in emb1)
+    emb_gap = max(float(np.abs(c["emb"][u] - emb1[u]).max()) for u in emb1)
+    gmm_gaps = [float((a - b.cpu()).abs().max() / b.abs().max())
+                for a, b in zip(c["gmm"], (s1.gamma, s1.first, s1.second))]
+    frames = inp["frames"].shape[0]
+    gamma_sum = float(c["gmm"][0].double().sum())
+    llr1 = llr1.cpu()
+    scale = float(llr1.abs().max())
+    plda_ok = c["plda"].shape == llr1.shape and bool(torch.allclose(
+        c["plda"], llr1, rtol=PLDA_RTOL, atol=PLDA_RTOL * scale))
+    plda_gap = float((c["plda"] - llr1).abs().max() / scale)
+    wall["13c"] = time.perf_counter() - t
+    if not (emb_ok and max(gmm_gaps) <= P13_GMM_TOL and plda_ok
+            and abs(gamma_sum - frames) <= 1e-5 * frames):
+        problems.append(f"13c: extraction {emb_gap:.3e}, GMM {gmm_gaps}, sum(gamma) "
+                        f"{gamma_sum} of {frames}, PLDA {plda_gap:.3e}")
+    log(f"phase 13c sharded back end, 2 gloo ranks sharing one card on {where}, each against "
+        f"its single-card function: extraction of {BENCH_B} utts x "
+        f"{inp['feats']['u00'].shape[0]} frames (full-width V2, seeded weights) max abs gap "
+        f"{emb_gap:.3e} (rtol = atol = {P13_EXTRACT_TOL}) in {c['secs']['extract']:.3f} s "
+        f"(single card {single['extract']:.3f} s); GMM statistics, "
+        f"{inp['gmm'].num_comp} components x {inp['frames'].shape[1]} dims, gselect "
+        f"{inp['gselect']}, {frames} frames: gamma/first/second gaps "
+        + "/".join(f"{g:.2e}" for g in gmm_gaps) + f" of each largest entry (limit "
+        f"{P13_GMM_TOL}), sum(gamma) {gamma_sum:.3f} for {frames} frames, in "
+        f"{c['secs']['gmm']:.3f} s (single card {single['gmm']:.3f} s); PLDA trial matrix "
+        f"{tuple(llr1.shape)} x {inp['enroll'].shape[1]}: gap {plda_gap:.3e} of its scale "
+        f"(rtol {PLDA_RTOL}, atol {PLDA_RTOL} x scale) in {c['secs']['plda']:.4f} s (single "
+        f"card {single['plda']:.4f} s); {wall['13c']:.1f} s")
+
+    # 13d: run_v2 on phase 9's corpus with a 2-rank mesh, the primary writing
+    t = time.perf_counter()
+    corpus_path = os.path.join(root, "corpus.pkl")
+    with open(corpus_path, "wb") as fh:
+        pickle.dump(drv["corpus"], fh)
+    launch(2, _p13d_rank, (root, corpus_path, v2_steps, train_cfg, configs or {}), **gloo)
+    ds = []
+    for r in range(2):
+        with open(os.path.join(root, f"d.{r}.json")) as fh:
+            ds.append(json.load(fh))
+    d0, d1 = ds
+    init_eer, p9_eer = drv["eer_initial"]["v2"], drv["eer"]["v2"]
+    wrote = os.path.exists(os.path.join(root, "run", "xvector.scp")) and os.path.exists(
+        os.path.join(root, "run", "backend", "plda"))
+    wall["13d"] = time.perf_counter() - t
+    problems += d0["problems"] + d1["problems"]
+    if not d0["eer"] < init_eer:
+        problems.append(f"13d: EER {100 * d0['eer']:.3f}% not below the initial weights' "
+                        f"{100 * init_eer:.3f}%")
+    if not (wrote and d1["writes"] == {} and min(d0["writes"].values(), default=0) > 0
+            and d0["eer"] == d1["eer"] and d0["scores_sum"] == d1["scores_sum"]):
+        problems.append(f"13d: writes {d0['writes']} / {d1['writes']}, files {wrote}, EERs "
+                        f"{d0['eer']} / {d1['eer']}")
+    if dev.type == "cuda" and d0["launches"] <= 0:
+        problems.append("13d: the MFCC kernel did not launch")
+    log(f"phase 13d run_v2 with a 2-rank mesh (gloo, one card) on {where}: phase 9's corpus "
+        f"and settings ({v2_steps} steps, augmentation, mean-only PLDA adaptation, "
+        f"{'narrow widths' if configs else 'default widths'}), the primary writing: "
+        f"unseen-speaker EER {100 * d0['eer']:.3f}% minDCF08 {d0['min_dcf08']:.4f} (phase 9, "
+        f"one process: {100 * p9_eer:.3f}%; initial weights {100 * init_eer:.3f}%), the same on "
+        f"both ranks; writes primary {d0['writes']}, other {d1['writes']}; MFCC launches "
+        f"{d0['launches']} (primary) + {d1['launches']}, every batch against the plain version "
+        f"{d0['mfcc']}; {d0['secs']:.1f} s in run_v2 ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in d0["seconds"].items())
+        + f"); {wall['13d']:.1f} s")
+    total = sum(wall.values())
+    log(f"phase 13 wall on {where}: " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items())
+        + f"; {total:.1f} s against its {P13_BUDGET_S:.0f} s budget "
+        f"({'within' if total <= P13_BUDGET_S else 'over'})")
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 13: " + "; ".join(problems))
+    mfcc_err = max([e for _, e in d0["mfcc"].values()], default=0.0)
+    return {"launches": d0["launches"] + d1["launches"], "mfcc_err": mfcc_err,
+            "readings": {"13a": a["reading"], "13b": b["reading"], "fault": b["fault"]},
+            "ms": {"13a": a["ms"], "13b": b["ms"]}, "eer": d0["eer"], "wall": wall}
+
+
 def main() -> int:
     import torch
 
@@ -3096,6 +3579,7 @@ def main() -> int:
         f"11c {t11[3] - t11[2]:.1f} s, 11d {t11[4] - t11[3]:.1f} s; {wall11:.1f} s against its "
         f"{P11_BUDGET_S:.0f} s budget ({'within' if wall11 <= P11_BUDGET_S else 'over'})")
     cli_run = phase_cli(env, drv["corpus"])
+    mesh_run = phase_mesh(env, drv)
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -3107,11 +3591,12 @@ def main() -> int:
     mfcc["launches_v1_dnn_path"] = dnn["launches"]
     mfcc["launches_bf16_driver_path"] = bf16["launches"]
     mfcc["launches_cli_path"] = cli_run["launches"]["mfcc_fused"]
+    mfcc["launches_mesh_path"] = mesh_run["launches"]
     mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
         {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
                           for c, (n, e) in dnn["mfcc"].items()}}.items())}
     mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"],
-                               bf16["mfcc_err"], cli_run["mfcc_err"]]
+                               bf16["mfcc_err"], cli_run["mfcc_err"], mesh_run["mfcc_err"]]
                               + [e for _, e in v1["mfcc"].values()]
                               + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]

@@ -22,9 +22,13 @@ same inputs:
   `cli`: v1-v5 on Kaldi data directories, prep-ldc/prep-asr with the
   `data.{corpora,ldc,asr_prep}` walkers, import-kaldi/export-kaldi through
   `utils.{nnet3,nnet2_io,kaldi_models}`) and the acceptance gauntlet
-  (`recipes.gauntlet`).
+  (`recipes.gauntlet`);
+- multi-process data parallelism on torch.distributed (`parallel`: the
+  device mesh, data-parallel steps with batch norm reduced over the mesh,
+  sharded extraction, GMM statistics and PLDA scoring).
 Imports torch and numpy only; kernels build with nvcc at first use.
 """
 
-from . import align, backend, classical, config, data, metrics, models, ops, recipes, train, utils  # noqa: F401
+from . import (align, backend, classical, config, data, metrics, models, ops,  # noqa: F401
+               parallel, recipes, train, utils)
 from .device import resolve_device  # noqa: F401

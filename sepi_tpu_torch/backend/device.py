@@ -20,8 +20,9 @@ m_k'``, both of which cancel, and TF32 products (10-bit mantissas) would
 not stay within 1e-3 of the float64 path.  The per-class sums are a
 one-hot GEMM in row blocks, not atomics, so they are the same from run to
 run.  The small (D, D) eigendecompositions stay on the host in float64,
-as in the reference.  The mesh-sharded scorer
-(`plda_score_matrix_sharded`) is not ported: it waits for the mesh.
+as in the reference.  ``plda_score_matrix_sharded`` splits the models
+over a device mesh: each rank scores its block of enrollment rows with
+the single-card body, and the blocks are gathered.
 """
 
 from __future__ import annotations
@@ -96,6 +97,32 @@ def plda_score_matrix_device(plda: Plda, enroll, test, num_utts=None,
     log_without = -0.5 * (d * _LOG_2PI + torch.sum(torch.log(var_without))
                           + torch.sum(v * v / var_without[None, :], dim=1))  # (N,)
     return log_given - log_without[None, :]
+
+
+def plda_score_matrix_sharded(plda: Plda, enroll, test, mesh, num_utts=None,
+                              axis: str = "data") -> torch.Tensor:
+    """(M, N) LLR matrix with the enrollment models sharded over the mesh's
+    ``axis``: the models are padded to ceil(M / n) * n rows (count 1), rank
+    i scores block i against the whole test set with
+    `plda_score_matrix_device` on its own device, and the blocks are
+    gathered, so every rank returns the (M, N) float32 matrix."""
+    from ..parallel.mesh import all_gather_rows, mesh_device
+
+    group = mesh.get_group(axis)
+    n_dev, idx = mesh[axis].size(), mesh.get_local_rank(axis)
+    if isinstance(enroll, torch.Tensor):
+        enroll = enroll.detach().cpu()
+    enroll = np.asarray(enroll, np.float32)
+    m = enroll.shape[0]
+    per = -(-m // n_dev)
+    e = np.zeros((per * n_dev, enroll.shape[1]), np.float32)
+    e[:m] = enroll
+    n = np.ones(per * n_dev, np.float32)
+    if num_utts is not None:
+        n[:m] = np.asarray(num_utts, np.float32)
+    blk = slice(idx * per, (idx + 1) * per)
+    local = plda_score_matrix_device(plda, e[blk], test, n[blk], device=mesh_device(mesh))
+    return all_gather_rows(local, group)[:m]
 
 
 # --------------------------------------------------------------------------

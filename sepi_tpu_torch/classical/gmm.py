@@ -18,8 +18,9 @@ The E-step is GEMMs on the model's device:
   or (N, K, D, D) tensor.
 The M-steps and the initialisation are host numpy, as in the reference.
 Float32 throughout; callers run inside `device.fp32_math` so no product
-drops to TF32.  The map-reduce `accumulate_stats_sharded` waits for the
-multi-GPU work.
+drops to TF32.  `accumulate_stats_sharded` is the map-reduce E-step over
+a device mesh: each rank accumulates its block of the frames, and one
+all-reduce sums the statistics.
 """
 
 from __future__ import annotations
@@ -196,6 +197,35 @@ def accumulate_stats(gmm, x, num_gselect: int = 0, min_post: float = 0.0, full: 
             else:
                 second += post.T @ (xb * xb)
     return GmmStats(gamma, first, second)
+
+
+def accumulate_stats_sharded(gmm, x, mesh, num_gselect: int = 0, min_post: float = 0.0,
+                             full: bool = False, chunk: int = 4096,
+                             axis: str = "data") -> GmmStats:
+    """Map-reduce E-step over the mesh's ``axis`` (the shape of
+    `sid/train_ivector_extractor.sh:131-149` / `train_full_ubm.sh:97-108`,
+    with one all-reduce for the `*-sum-accs` file tree).  Every rank passes
+    the same frames ``x`` (N, D) and a model on its own device; the frames
+    are padded to ceil(N / n) * n rows, rank i accumulates block i with the
+    padding marked invalid, and the sums come back on every rank.  Equal to
+    `accumulate_stats` up to summation order."""
+    from ..parallel.mesh import reduce_sum_
+
+    group = mesh.get_group(axis)
+    n_dev, idx = mesh[axis].size(), mesh.get_local_rank(axis)
+    dev = gmm.means.device
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    n = x.shape[0]
+    per = -(-n // n_dev)
+    lo, hi = idx * per, min((idx + 1) * per, n)
+    xl = torch.zeros((per, x.shape[1]), device=dev)
+    valid = torch.zeros(per, dtype=torch.bool, device=dev)
+    if hi > lo:
+        xl[:hi - lo] = x[lo:hi]
+        valid[:hi - lo] = True
+    stats = accumulate_stats(gmm, xl, num_gselect, min_post, full, min(chunk, per), valid=valid)
+    reduce_sum_([stats.gamma, stats.first, stats.second], group)
+    return stats
 
 
 # Components with fewer effective frames than this keep their previous

@@ -4,8 +4,9 @@ A copy of the dataclasses these paths read from `sepi_tpu/config.py`
 (`FrontendConfig` and its presets `MFCC_SRE_IVECTOR`/`MFCC_HIRES`,
 `VadConfig`, `CmvnConfig`, `ChunkConfig`, `OptimizerConfig`,
 `TrainConfig`, `ExtractConfig`, `BackendConfig`, `UbmConfig`,
-`IvectorConfig`, `AlignConfig`), with the same fields and defaults, so a
-config built for either package means the same thing in the other.
+`IvectorConfig`, `AlignConfig`, `MeshConfig`), with the same fields and
+defaults, so a config built for either package means the same thing in the
+other.
 """
 
 from __future__ import annotations
@@ -214,7 +215,7 @@ class BackendConfig:
     # PLDA adaptation (ivector-adapt-plda, v2/run_sre16.sh:96-103)
     adapt_within_covar_scale: float = 0.75
     adapt_between_covar_scale: float = 0.25
-    # on-device scoring is not ported yet; True raises in score_trials
+    # score the trial matrix on the device in float32 (`backend.device`)
     device_scoring: bool = False
 
     replace = _replace
@@ -281,3 +282,13 @@ class AlignConfig:
     fmllr_min_beta: float = 200.0  # frames below which a spk stays identity
 
     replace = _replace
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout.  The TDNNs fit one card, so the only sharded
+    axis is data; the mesh keeps a model axis, as the reference's does."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1

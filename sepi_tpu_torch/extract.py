@@ -51,16 +51,49 @@ class EmbeddingExtractor:
     """Batched bucketed extractor for a model whose
     ``forward(feats, frame_mask, **model_kwargs)`` returns a dict holding
     ``cfg.embedding_node``.  The model is moved to ``device`` and run in
-    eval mode without gradients."""
+    eval mode without gradients.
+
+    With a ``mesh`` (`parallel.make_mesh`; the reference's GSPMD
+    extraction, the analog of `extract_xvectors_new.sh`'s nj=32 fan-out)
+    every rank plans the same batches, forwards its rows of each over the
+    mesh's data axis and gathers the embeddings, so every rank returns the
+    whole dict.  ``cfg.batch_size`` must be divisible by the data-axis
+    size, and the device is the rank's on the mesh (``device`` unused)."""
 
     def __init__(self, model: torch.nn.Module, cfg: ExtractConfig = ExtractConfig(),
                  min_frames: int = 15, model_kwargs: Optional[Dict] = None,
-                 device: DeviceLike = "cuda"):
-        self.device = resolve_device(device)
+                 device: DeviceLike = "cuda", mesh=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from .parallel.mesh import data_size, mesh_device
+
+            self.device = mesh_device(mesh)
+            if cfg.batch_size % data_size(mesh):
+                raise ValueError(f"batch_size {cfg.batch_size} not divisible by data axis "
+                                 f"{data_size(mesh)}")
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.min_frames = min_frames
         self.model_kwargs = dict(model_kwargs or {})
+
+    def _embed(self, feats: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """The embeddings of one padded batch; with a mesh, this rank's
+        rows forwarded and every rank's gathered."""
+        if self.mesh is not None:
+            from .parallel.mesh import all_gather_rows, data_group
+            from .parallel.multihost import local_batch_slice
+
+            sl = local_batch_slice(feats.shape[0], self.mesh)
+            feats, mask = feats[sl], mask[sl]
+        with torch.no_grad():
+            out = self.model(torch.from_numpy(feats).to(self.device),
+                             frame_mask=torch.from_numpy(mask).to(self.device),
+                             **self.model_kwargs)[self.cfg.embedding_node].float()
+            if self.mesh is not None:
+                out = all_gather_rows(out, data_group(self.mesh))
+        return out.cpu().numpy()
 
     def extract_utterances(self, features: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """utt_id -> (T, D) features  =>  utt_id -> embedding."""
@@ -86,7 +119,6 @@ class EmbeddingExtractor:
         sums: Dict[str, np.ndarray] = {}
         weights: Dict[str, float] = {}
         bs = self.cfg.batch_size
-        node = self.cfg.embedding_node
         for b, items in plan.items():
             for i0 in range(0, len(items), bs):
                 group = items[i0:i0 + bs]
@@ -95,11 +127,7 @@ class EmbeddingExtractor:
                 for j, (utt, off, length) in enumerate(group):
                     feats[j, :length] = features[utt][off:off + length]
                     mask[j, :length] = True
-                with torch.no_grad():
-                    out = self.model(torch.from_numpy(feats).to(self.device),
-                                     frame_mask=torch.from_numpy(mask).to(self.device),
-                                     **self.model_kwargs)
-                emb = out[node].float().cpu().numpy()
+                emb = self._embed(feats, mask)
                 for j, (utt, off, length) in enumerate(group):
                     if utt in sums:
                         sums[utt] = sums[utt] + length * emb[j]

@@ -122,6 +122,11 @@ class BatchNorm(nn.Module):
     - While ``moments`` is a list (see `batch_moments`), a train-mode
       forward appends its (mean, var) there instead of updating the
       running statistics.
+    - While ``group`` is a process group (see `sync_batch_norm`), the
+      train-mode mean and E[x^2] are averaged over its ranks, forward and
+      backward, before the variance is formed: the moments of the global
+      batch, as GSPMD computes them, when each rank holds an equal shard.
+      Every rank then stores the same running statistics.
     """
 
     def __init__(self, dim: int, eps: float = 1e-3, decay: float = 0.95):
@@ -134,6 +139,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.int64))
         self.moments: Optional[list] = None
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Flax's BatchNorm(dtype=float32): the input promoted to at least float32
@@ -142,7 +148,12 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         mean = x.mean((0, 2))
-        var = torch.clamp((x * x).mean((0, 2)) - mean * mean, min=0.0)
+        sq = (x * x).mean((0, 2))
+        if self.group is not None:
+            from ..parallel.mesh import all_reduce_mean
+
+            mean, sq = all_reduce_mean(torch.cat([mean, sq]), self.group).chunk(2)
+        var = torch.clamp(sq - mean * mean, min=0.0)
         if self.moments is not None:
             self.moments.append((mean.detach(), var.detach()))
         else:
@@ -168,6 +179,20 @@ def batch_moments(model: nn.Module) -> Iterator[Dict[str, list]]:
     finally:
         for m in bns.values():
             m.moments = None
+
+
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, group) -> Iterator[None]:
+    """Inside the block, every `BatchNorm` of ``model`` reduces its
+    train-mode moments over ``group`` (a no-op for None)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
 
 
 # std of a unit normal truncated to [-2, 2] (jax.nn.initializers.variance_scaling)

@@ -1,4 +1,5 @@
-"""Kaldi MFCC: the spectral constants and the feature extractor.
+"""Kaldi MFCC and log-mel filterbank: the spectral constants and the
+feature extractor.
 
 Port of `sepi_tpu/ops/features.py`.  The constants (mel bank, DCT,
 lifter, and the DFT basis with DC removal, preemphasis and the window
@@ -8,6 +9,12 @@ accelerator: every config that `mfcc_cuda.supported` accepts, dithered
 or not, goes through the fused MFCC (`ops/mfcc_cuda.py`), whose dither is
 the waveform-level counter-hash field of the TPU kernel.  Configs outside
 that gate raise: the port has no second MFCC path.
+
+`FeatureExtractor.fbank` (`compute-fbank-feats`) is the reference's
+`_fbank_impl`, which no TPU kernel computes: plain torch ops on the
+extractor's device.  Undithered, raw frames times the folded DFT basis
+(one GEMM); dithered, `framing.frame_signal`'s per-frame counter-hash
+field, the window chain and the plain DFT basis; then power, mel and log.
 
 Kaldi conventions preserved: HTK mel scale 1127*ln(1+f/700) with
 triangular banks; orthogonal DCT-II; lifter 1 + 0.5*Q*sin(pi*k/Q);
@@ -23,8 +30,10 @@ import numpy as np
 import torch
 
 from ..config import FrontendConfig
-from ..device import DeviceLike, resolve_device
-from .framing import num_frames, window_function
+from ..device import DeviceLike, fp32_math, resolve_device
+from .framing import frame_signal, num_frames, raw_frames, window_function
+
+_EPS = float(np.finfo(np.float32).tiny)
 
 
 def mel_scale(freq):
@@ -112,36 +121,32 @@ def fused_dft_basis(cfg: FrontendConfig) -> np.ndarray:
     return b3.astype(np.float32)
 
 
+def _power_spectrum(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """(..., flen) @ (flen, 2K) -> power (..., K)."""
+    spec = x @ basis
+    k = basis.shape[1] // 2
+    return spec[..., :k] ** 2 + spec[..., k:] ** 2
+
+
 class FeatureExtractor:
-    """Batched MFCC for a fixed FrontendConfig on one device.
+    """Batched MFCC and filterbank for a fixed FrontendConfig on one device.
 
     Usage::
 
         fe = FeatureExtractor(cfg)                       # device="cuda"
         feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)  # (B, T, C)
+        fbank, mask = fe.fbank(samples, lengths)         # (B, T, num_mel_bins)
 
-    On a CUDA device every batch runs the hand-written MFCC kernel; on the
-    CPU (only when asked for) its plain PyTorch version runs.
+    On a CUDA device every MFCC batch runs the hand-written MFCC kernel; on
+    the CPU (only when asked for) its plain PyTorch version runs.  A config
+    outside the kernel's gate raises in `mfcc`.
     """
 
     def __init__(self, cfg: FrontendConfig, device: DeviceLike = "cuda"):
-        from .mfcc_cuda import supported
-
-        if not supported(cfg):
-            raise ValueError(
-                f"frontend config outside the fused MFCC's gate: {cfg}")
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def mfcc(self, samples, lengths=None, max_frames: Optional[int] = None,
-             utt_seeds=None):
-        """(B, N) or (N,) samples -> (feats (B, T, C), mask (B, T)).
-
-        ``utt_seeds`` ((B,) int32, `dither.utt_seeds`) turns on the
-        counter-hash dither when ``cfg.dither != 0``; without seeds the
-        features are undithered, as in the reference."""
-        from .mfcc_cuda import mfcc_fused
-
+    def _batch(self, samples, lengths, max_frames):
         samples = torch.as_tensor(samples, dtype=torch.float32, device=self.device)
         squeeze = samples.ndim == 1
         if squeeze:
@@ -154,6 +159,20 @@ class FeatureExtractor:
                 torch.as_tensor(lengths, dtype=torch.int32, device=self.device))
         if max_frames is None:
             max_frames = int(num_frames(samples.shape[1], self.cfg))
+        return samples, lengths, max_frames, squeeze
+
+    def mfcc(self, samples, lengths=None, max_frames: Optional[int] = None,
+             utt_seeds=None):
+        """(B, N) or (N,) samples -> (feats (B, T, C), mask (B, T)).
+
+        ``utt_seeds`` ((B,) int32, `dither.utt_seeds`) turns on the
+        counter-hash dither when ``cfg.dither != 0``; without seeds the
+        features are undithered, as in the reference."""
+        from .mfcc_cuda import mfcc_fused, supported
+
+        if not supported(self.cfg):
+            raise ValueError(f"frontend config outside the fused MFCC's gate: {self.cfg}")
+        samples, lengths, max_frames, squeeze = self._batch(samples, lengths, max_frames)
         seeds = None
         if self.cfg.dither != 0.0 and utt_seeds is not None:
             seeds = torch.as_tensor(np.asarray(utt_seeds, np.int32), device=self.device)
@@ -162,3 +181,41 @@ class FeatureExtractor:
         if squeeze:
             return feats[0], mask[0]
         return feats, mask
+
+    @fp32_math()
+    def fbank(self, samples, lengths=None, max_frames: Optional[int] = None,
+              utt_seeds=None):
+        """(B, N) or (N,) samples -> (log-mel filterbank (B, T, num_mel_bins),
+        or the linear mel energies when ``cfg.use_log_fbank`` is off; mask
+        (B, T)).  ``utt_seeds`` dithers as `framing.frame_signal` does."""
+        cfg = self.cfg
+        samples, lengths, max_frames, squeeze = self._batch(samples, lengths, max_frames)
+        mel = torch.from_numpy(mel_banks(cfg)).to(self.device)
+        seeds = utt_seeds if cfg.dither != 0.0 else None
+        if seeds is None and cfg.raw_energy:
+            # DC removal, preemphasis and the window folded into the basis
+            frames, mask = raw_frames(samples, lengths, cfg, max_frames)
+            basis = fused_dft_basis(cfg)
+        else:
+            frames, _, mask = frame_signal(samples, lengths, cfg, max_frames, seeds=seeds)
+            basis = dft_basis(cfg)
+        power = _power_spectrum(frames, torch.from_numpy(basis).to(self.device))
+        out = torch.log(torch.clamp(power @ mel, min=_EPS))
+        if not cfg.use_log_fbank:
+            out = torch.exp(out)
+        out = out * mask[..., None]
+        if squeeze:
+            return out[0], mask[0]
+        return out, mask
+
+
+def mfcc(samples, lengths=None, cfg: FrontendConfig = FrontendConfig(), utt_seeds=None,
+         device: DeviceLike = "cuda"):
+    """One-shot MFCC (builds the extractor; prefer the class in loops)."""
+    return FeatureExtractor(cfg, device).mfcc(samples, lengths, utt_seeds=utt_seeds)
+
+
+def fbank(samples, lengths=None, cfg: FrontendConfig = FrontendConfig(), utt_seeds=None,
+          device: DeviceLike = "cuda"):
+    """One-shot log-mel filterbank."""
+    return FeatureExtractor(cfg, device).fbank(samples, lengths, utt_seeds=utt_seeds)

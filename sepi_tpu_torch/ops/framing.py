@@ -1,17 +1,23 @@
-"""Kaldi frame-extraction geometry: frame counts, windows, mirror gather.
+"""Kaldi frame extraction: frame counts, windows, mirror gather, and the
+per-frame processing chain.
 
-Port of the parts of `sepi_tpu/ops/framing.py` that the MFCC path reads:
+Port of `sepi_tpu/ops/framing.py`:
 
 - ``snip_edges=True``:  frames = (N - flen) // shift + 1, frame t starts at
   t*shift.
 - ``snip_edges=False`` (the SRE configs' choice): frames =
   (N + shift//2) // shift, frame t is centred at t*shift + shift//2, and
   out-of-range samples mirror-reflect without repeating the edge sample.
+- `frame_signal`: dither, DC-offset removal, raw log-energy, preemphasis
+  and window multiply, in Kaldi's order; `raw_frames`: the framing alone.
+Both gather every frame exactly (the reference's gather-free fast path
+computes the same valid frames).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +85,59 @@ def gather_frames_exact(samples: torch.Tensor, lengths: torch.Tensor,
     b, f = frames.shape
     idx = frame_indices(frames, lengths, cfg)
     return torch.gather(samples, 1, idx.reshape(b, -1)).reshape(b, f, -1)
+
+
+def _frames_and_mask(samples, lengths, cfg: FrontendConfig, max_frames: int):
+    samples = torch.as_tensor(samples, dtype=torch.float32)
+    lengths = torch.as_tensor(lengths, device=samples.device).to(torch.int64)
+    t = torch.arange(max_frames, device=samples.device)
+    frames = gather_frames_exact(samples, lengths, t.expand(samples.shape[0], -1), cfg)
+    mask = t[None, :] < num_frames(lengths, cfg)[:, None]
+    return frames, mask
+
+
+def raw_frames(samples, lengths, cfg: FrontendConfig,
+               max_frames: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Framing only (no dither, DC removal, preemphasis or window): (B, N)
+    samples and (B,) true lengths -> frames (B, max_frames, flen) float32
+    and the frame mask (B, max_frames)."""
+    return _frames_and_mask(samples, lengths, cfg, max_frames)
+
+
+def frame_signal(samples, lengths, cfg: FrontendConfig, max_frames: int,
+                 seeds: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched framing and Kaldi's per-frame chain: dither -> remove DC ->
+    raw log-energy -> preemphasis -> window.
+
+    ``seeds`` ((B,) int32 per-utterance dither seeds, `dither.utt_seeds`)
+    turn on the dither when ``cfg.dither != 0``: the noise at sample n of
+    frame t is the counter-hash normal of (seed, t * flen + n), the
+    reference's per-frame field (`framing.py:335-349`), so features do not
+    depend on the batch.  (The reference's PRNG-key dither has no
+    counterpart.)
+
+    Returns windowed (B, max_frames, flen), log_energy (B, max_frames)
+    and the frame mask (B, max_frames)."""
+    from .dither import MASK32, hash_normal
+
+    frames, mask = _frames_and_mask(samples, lengths, cfg, max_frames)
+    dev = frames.device
+    if seeds is not None and cfg.dither != 0.0:
+        flen = cfg.frame_length
+        s = torch.as_tensor(np.asarray(seeds, np.int64) & MASK32, device=dev)[:, None, None]
+        cnt = torch.arange(max_frames * flen, device=dev).reshape(1, max_frames, flen)
+        # a fixed span (2^27, 1.9 h of 10 ms frames at flen 200): the second
+        # uniform's counters must not depend on the batch's padding
+        frames = frames + cfg.dither * hash_normal(s, cnt, 1 << 27)
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(-1, keepdim=True)
+    tiny = torch.finfo(torch.float32).tiny
+    log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
+    if cfg.preemphasis != 0.0:
+        shifted = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - cfg.preemphasis * shifted
+    frames = frames * torch.from_numpy(window_function(cfg)).to(dev)
+    if not cfg.raw_energy:
+        log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
+    return frames, log_energy, mask

@@ -23,8 +23,11 @@ Each driver takes the reference's arguments plus ``device=`` (default
 "cuda") and passes it to every stage: the features (MFCC kernel), the s5
 aligner (Viterbi kernel), the augmentation's FFT, the UBM and T-matrix
 EM, the trainers, the extraction and the backend's trial scoring when
-``BackendConfig.device_scoring`` is on.  The device mesh is not ported: a
-mesh raises, as a training entry point does.  `RunResult.seconds` holds
+``BackendConfig.device_scoring`` is on.  With a ``mesh`` (v2-v5) every
+rank runs the driver: training and extraction are data-parallel over the
+mesh, the primary alone runs the cached feature and s5 stages and writes
+the metrics, checkpoints and Kaldi-format files, and every rank returns
+the same result.  `RunResult.seconds` holds
 each stage's wall seconds.  Every driver runs inside `device.fp32_math`
 (no TF32).  The classical modules load only when `run_v1` runs.
 """
@@ -77,6 +80,13 @@ class _Stages:
         now = time.perf_counter()
         self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
         self._t = now
+
+
+def _metrics_logger(workdir: str, mesh) -> Optional[MetricsLogger]:
+    """The run's metrics stream; with a mesh, the primary's alone."""
+    from ..parallel.multihost import is_primary
+
+    return MetricsLogger(f"{workdir}/metrics.jsonl") if mesh is None or is_primary() else None
 
 
 @dataclasses.dataclass
@@ -180,8 +190,13 @@ def _finish(
     log,
     workdir: Optional[str] = None,
     stages: Optional[_Stages] = None,
+    mesh=None,
 ) -> RunResult:
+    from ..parallel.multihost import is_primary
+
     stages = stages or _Stages(torch.device("cpu"))
+    if mesh is not None and not is_primary():
+        workdir = None  # the primary writes the files
     if workdir:
         save_embeddings(utt_embeddings, workdir)
         stages.mark("files")
@@ -395,8 +410,8 @@ def run_v2(
     `frame_level_objf/common.py:763-826`)."""
     dev = pipeline.training_device(train_cfg, mesh, device)
     stages = _Stages(dev)
-    cache = ArtifactCache(workdir)
-    log = MetricsLogger(f"{workdir}/metrics.jsonl")
+    cache = ArtifactCache(workdir, mesh)
+    log = _metrics_logger(workdir, mesh)
     if checkpoint_dir == "auto":
         checkpoint_dir = f"{workdir}/ckpt"
 
@@ -439,12 +454,12 @@ def run_v2(
         adapt_embs = np.stack(list(a.values()))
         stages.mark("extract")
     return _finish(embs, train_dataset, trials, enroll_spk2utt, backend_cfg,
-                   adapt_embs, condition_fn, log, workdir, stages)
+                   adapt_embs, condition_fn, log, workdir, stages, mesh)
 
 
 def _phonetic_common(train_audio, eval_audio, alignments, workdir,
                      transcripts=None, lexicon=None, align_cfg=None,
-                     utt2spk=None, device: DeviceLike = "cuda", stages=None):
+                     utt2spk=None, device: DeviceLike = "cuda", stages=None, mesh=None):
     """Shared v3/v4/v5 front half: nosil features + senone alignments.
 
     Alignment provider precedence (matching the reference's data flow,
@@ -460,7 +475,7 @@ def _phonetic_common(train_audio, eval_audio, alignments, workdir,
     from .s5 import run_s5, select_voiced_ali
 
     stages = stages or _Stages(torch.device("cpu"))
-    cache = ArtifactCache(workdir)
+    cache = ArtifactCache(workdir, mesh)
     feats_eval = cache.stage_store(
         "feats_eval", [_audio_fingerprint(eval_audio)],
         lambda: pipeline.iter_features_nosil(eval_audio, device=device), log=print,
@@ -502,7 +517,7 @@ def _phonetic_common(train_audio, eval_audio, alignments, workdir,
 
 
 def _phonetic_front(train_dataset, train_audio, eval_audio, alignments, workdir,
-                    transcripts, lexicon, align_cfg, augments, dev, stages):
+                    transcripts, lexicon, align_cfg, augments, dev, stages, mesh):
     if augments is not None:
         # augmented copies join the SPEAKER stream only: they carry no
         # transcripts/alignments, so the AM frame sampler skips them
@@ -515,7 +530,7 @@ def _phonetic_front(train_dataset, train_audio, eval_audio, alignments, workdir,
         stages.mark("augment")
     _, feats_train, feats_eval, alignments, num_senones = _phonetic_common(
         train_audio, eval_audio, alignments, workdir, transcripts, lexicon,
-        align_cfg, {u.utt_id: u.spk_id for u in train_dataset}, dev, stages,
+        align_cfg, {u.utt_id: u.spk_id for u in train_dataset}, dev, stages, mesh,
     )
     return train_dataset, feats_train, feats_eval, alignments, num_senones
 
@@ -550,7 +565,7 @@ def run_v3(
         checkpoint_dir = f"{workdir}/ckpt"
     train_dataset, feats_train, feats_eval, alignments, num_senones = _phonetic_front(
         train_dataset, train_audio, eval_audio, alignments, workdir, transcripts, lexicon,
-        align_cfg, augments, dev, stages,
+        align_cfg, augments, dev, stages, mesh,
     )
     model_cfg = model_cfg or MultitaskConfig(
         num_speakers=len(train_dataset.speakers), num_senones=num_senones
@@ -560,7 +575,7 @@ def run_v3(
             f"model num_senones={model_cfg.num_senones} < alignment "
             f"senone count {num_senones}"
         )
-    log = MetricsLogger(f"{workdir}/metrics.jsonl")
+    log = _metrics_logger(workdir, mesh)
     model, state = phonetic.train_multitask_model(
         feats_train, alignments, train_dataset, model_cfg, train_cfg, num_steps,
         mesh=mesh, log=log, checkpoint_dir=checkpoint_dir,
@@ -574,7 +589,7 @@ def run_v3(
     )
     stages.mark("extract")
     return _finish(embs, train_dataset, trials, enroll_spk2utt, backend_cfg,
-                   None, condition_fn, log, workdir, stages)
+                   None, condition_fn, log, workdir, stages, mesh)
 
 
 @fp32_math()
@@ -610,7 +625,7 @@ def run_v4(
         checkpoint_dir = f"{workdir}/ckpt"
     train_dataset, feats_train, feats_eval, alignments, num_senones = _phonetic_front(
         train_dataset, train_audio, eval_audio, alignments, workdir, transcripts, lexicon,
-        align_cfg, augments, dev, stages,
+        align_cfg, augments, dev, stages, mesh,
     )
     am_cfg = am_cfg or AmConfig(num_senones=num_senones)
     if am_cfg.num_senones < num_senones:
@@ -621,7 +636,7 @@ def run_v4(
     model_cfg = model_cfg or AdaptedConfig(
         num_speakers=len(train_dataset.speakers), am=am_cfg
     )
-    log = MetricsLogger(f"{workdir}/metrics.jsonl")
+    log = _metrics_logger(workdir, mesh)
     # AM pretraining runs without valid diagnostics, matching the
     # reference (train_am.sh removes valid_diagnostic.scp)
     am_model, am_state = phonetic.train_am_model(
@@ -642,7 +657,7 @@ def run_v4(
     )
     stages.mark("extract")
     return _finish(embs, train_dataset, trials, enroll_spk2utt, backend_cfg,
-                   None, condition_fn, log, workdir, stages)
+                   None, condition_fn, log, workdir, stages, mesh)
 
 
 @fp32_math()
@@ -678,7 +693,7 @@ def run_v5(
         checkpoint_dir = f"{workdir}/ckpt"
     train_dataset, feats_train, feats_eval, alignments, num_senones = _phonetic_front(
         train_dataset, train_audio, eval_audio, alignments, workdir, transcripts, lexicon,
-        align_cfg, augments, dev, stages,
+        align_cfg, augments, dev, stages, mesh,
     )
     am_cfg = am_cfg or AmConfig(num_senones=num_senones)
     model_cfg = model_cfg or CombinedConfig(
@@ -691,7 +706,7 @@ def run_v5(
             f"num_senones ({am_cfg.num_senones}/{model_cfg.num_senones}) < "
             f"alignment senone count {num_senones}"
         )
-    log = MetricsLogger(f"{workdir}/metrics.jsonl")
+    log = _metrics_logger(workdir, mesh)
     # AM pretraining runs without valid diagnostics, matching the
     # reference (train_am.sh removes valid_diagnostic.scp)
     am_model, am_state = phonetic.train_am_model(
@@ -714,4 +729,4 @@ def run_v5(
     )
     stages.mark("extract")
     return _finish(embs, train_dataset, trials, enroll_spk2utt, backend_cfg,
-                   None, condition_fn, log, workdir, stages)
+                   None, condition_fn, log, workdir, stages, mesh)

@@ -117,7 +117,8 @@ def train_nnet2_am(
     """Train the p-norm multisplice senone net on hires frame egs
     (`sid/nnet2/train_multisplice_accel2.sh`: frame egs and the reference
     LR schedule).  Returns (model, state), the model in eval mode; the
-    sampler draws the reference's probe batch first, as it does."""
+    sampler draws the reference's probe batch first, as it does.  With a
+    ``mesh`` each rank trains on its shard of every batch."""
     if cfg is None:
         num_senones = 1 + max(int(np.max(a)) for a in alignments.values())
         feat_dim = next(iter(features.values())).shape[1]
@@ -135,13 +136,13 @@ def train_nnet2_am(
                            context=cfg.context)
     tx, _ = build_optimizer(train_cfg.optimizer, num_steps)
     sampler.sample_batch()  # the reference's probe batch: keeps the RNG in step
-    state = create_train_state(Nnet2Multisplice(cfg), tx, train_cfg.seed, dev)
+    state = create_train_state(Nnet2Multisplice(cfg), tx, train_cfg.seed, dev, mesh=mesh)
     trainer = Trainer(
-        steps={"am": make_am_step(tx)}, state=state, log_every=50, logger=log,
-        supersteps=make_task_supersteps(tx, {"am": {}}, train_cfg),
-        steps_per_dispatch=train_cfg.steps_per_dispatch,
+        steps={"am": make_am_step(tx, mesh=mesh)}, state=state, log_every=50, logger=log,
+        supersteps=make_task_supersteps(tx, {"am": {}}, train_cfg, mesh),
+        steps_per_dispatch=train_cfg.steps_per_dispatch, mesh=mesh,
     )
-    it = batch_iterator(sampler, train_cfg)
+    it = batch_iterator(sampler, train_cfg, mesh)
     try:
         state = trainer.run(it, num_steps=num_steps)
     finally:

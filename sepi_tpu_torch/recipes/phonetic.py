@@ -16,7 +16,9 @@ frame-aligned with the (silence-stripped) feature streams, as
 ``device=`` (default "cuda") and returns (model, state) with the model in
 eval mode and calibrated batch-norm statistics.  The samplers draw in the
 reference's order (held-out batches, a probe batch, calibration batches,
-then training), so both packages train on the same batches.
+then training), so both packages train on the same batches.  With a
+``mesh`` every rank draws the same global batches and trains on its
+shard of each (`pipeline.train_xvector_model`).
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ def pseudo_senone_alignments(features: Mapping[str, np.ndarray], num_senones: in
 
 def _train(state, steps: Dict, batch_iter, num_steps: int, calib_feats, train_cfg: TrainConfig,
            model_kwargs=None, log=None, valid_batches=None, eval_steps=None,
-           checkpoint_dir=None, supersteps=None):
+           checkpoint_dir=None, supersteps=None, mesh=None):
     """The shared loop.  With ``checkpoint_dir``, checkpoints every
     ``checkpoint_every`` steps, a run resumes from the newest, and the final
     model is the best checkpoint-tail combination on the held-out
@@ -97,9 +99,9 @@ def _train(state, steps: Dict, batch_iter, num_steps: int, calib_feats, train_cf
     trainer = Trainer(
         steps=steps, state=state, log_every=50, logger=log,
         valid_batches=valid_batches, eval_steps=eval_steps, eval_every=100,
-        supersteps=supersteps, steps_per_dispatch=train_cfg.steps_per_dispatch,
+        supersteps=supersteps, steps_per_dispatch=train_cfg.steps_per_dispatch, mesh=mesh,
     )
-    it = batch_iterator(batch_iter, train_cfg)
+    it = batch_iterator(batch_iter, train_cfg, mesh)
     try:
         if checkpoint_dir:
             combine_objf = None
@@ -109,13 +111,13 @@ def _train(state, steps: Dict, batch_iter, num_steps: int, calib_feats, train_cf
                                for vb in valid_batches if vb.task in eval_steps)
 
             state = run_checkpointed(trainer, it, num_steps, train_cfg, checkpoint_dir,
-                                     log=log, combine_objf=combine_objf)
+                                     log=log, combine_objf=combine_objf, mesh=mesh)
         else:
             state = trainer.run(it, num_steps=num_steps)
     finally:
         if hasattr(it, "close"):
             it.close()
-    return finalize_batch_stats(state, calib_feats, model_kwargs=model_kwargs)
+    return finalize_batch_stats(state, calib_feats, model_kwargs=model_kwargs, mesh=mesh)
 
 
 @fp32_math()
@@ -139,10 +141,11 @@ def train_am_model(
     tx, _ = build_optimizer(train_cfg.optimizer, num_steps)
     sampler.sample_batch()  # the reference's probe batch: keeps the RNG in step
     state = create_train_state(AmNet(am_cfg, dtype=train_cfg.compute_dtype), tx,
-                               train_cfg.seed, dev)
+                               train_cfg.seed, dev, mesh=mesh)
     calib = [sampler.sample_batch().feats for _ in range(3)]
-    state = _train(state, {"am": make_am_step(tx)}, iter(sampler), num_steps, calib, train_cfg,
-                   log=log, supersteps=make_task_supersteps(tx, {"am": {}}, train_cfg))
+    state = _train(state, {"am": make_am_step(tx, mesh=mesh)}, iter(sampler), num_steps, calib,
+                   train_cfg, log=log,
+                   supersteps=make_task_supersteps(tx, {"am": {}}, train_cfg, mesh), mesh=mesh)
     return state.model, state
 
 
@@ -213,7 +216,7 @@ def _multitask_iter(features, alignments, dataset: Dataset, cfg: TrainConfig, am
 
 def _two_task_run(model, features, alignments, dataset: Dataset, train_cfg: TrainConfig,
                   num_steps: int, am_context, dev, log, checkpoint_dir, num_heldout_utts,
-                  lr_factors=None, graft_from=None):
+                  lr_factors=None, graft_from=None, mesh=None):
     """v3 and v5: interleaved am/xvec steps on one model, the per-task
     held-out batches, calibration with both branches on."""
     label_map = dataset.speaker_label_map()
@@ -223,18 +226,18 @@ def _two_task_run(model, features, alignments, dataset: Dataset, train_cfg: Trai
         features, alignments, train_ds, train_cfg, am_context, num_steps, label_map=label_map)
     tx, _ = build_optimizer(train_cfg.optimizer, num_steps, lr_factors=lr_factors)
     xvec_sampler.sample_batch(xvec_sampler.buckets[0])  # the reference's probe batch
-    state = create_train_state(model, tx, train_cfg.seed, dev)
+    state = create_train_state(model, tx, train_cfg.seed, dev, mesh=mesh)
     if graft_from is not None:
         graft_subtree(state.model, graft_from, "am")
-    steps = {"am": make_am_step(tx, BOTH_TASKS["am"]),
-             "xvec": make_xvec_step(tx, BOTH_TASKS["xvec"])}
+    steps = {"am": make_am_step(tx, BOTH_TASKS["am"], mesh),
+             "xvec": make_xvec_step(tx, BOTH_TASKS["xvec"], mesh)}
     calib = [xvec_sampler.sample_batch(b).feats for b in xvec_sampler.buckets[:3]]
-    eval_steps = ({t: make_eval_step(kw) for t, kw in BOTH_TASKS.items()}
+    eval_steps = ({t: make_eval_step(kw, mesh) for t, kw in BOTH_TASKS.items()}
                   if valid_batches else None)
     state = _train(state, steps, iter(interleaver), num_steps, calib, train_cfg,
                    model_kwargs={"task": "both"}, log=log, valid_batches=valid_batches,
                    eval_steps=eval_steps, checkpoint_dir=checkpoint_dir,
-                   supersteps=make_task_supersteps(tx, BOTH_TASKS, train_cfg))
+                   supersteps=make_task_supersteps(tx, BOTH_TASKS, train_cfg, mesh), mesh=mesh)
     return state.model, state
 
 
@@ -257,7 +260,7 @@ def train_multitask_model(
     return _two_task_run(MultitaskCVector(model_cfg, dtype=train_cfg.compute_dtype),
                          features, alignments, dataset, train_cfg,
                          num_steps, model_cfg.am_context, dev, log, checkpoint_dir,
-                         num_heldout_utts)
+                         num_heldout_utts, mesh=mesh)
 
 
 @fp32_math()
@@ -291,14 +294,14 @@ def train_adapted_model(
     tx, _ = build_optimizer(train_cfg.optimizer, num_steps, lr_factors={"am": am_lr_factor})
     sampler.sample_batch(sampler.buckets[0])  # the reference's probe batch
     state = create_train_state(AdaptedXVector(model_cfg, dtype=train_cfg.compute_dtype), tx,
-                               train_cfg.seed, dev)
+                               train_cfg.seed, dev, mesh=mesh)
     graft_subtree(state.model, am_model, "am")
-    eval_steps = {"xvec": make_eval_step()} if valid_batches else None
+    eval_steps = {"xvec": make_eval_step(mesh=mesh)} if valid_batches else None
     calib = [sampler.sample_batch(b).feats for b in sampler.buckets[:3]]
-    state = _train(state, {"xvec": make_xvec_step(tx)}, iter(sampler), num_steps, calib,
-                   train_cfg, log=log, valid_batches=valid_batches, eval_steps=eval_steps,
+    state = _train(state, {"xvec": make_xvec_step(tx, mesh=mesh)}, iter(sampler), num_steps,
+                   calib, train_cfg, log=log, valid_batches=valid_batches, eval_steps=eval_steps,
                    checkpoint_dir=checkpoint_dir,
-                   supersteps=make_task_supersteps(tx, {"xvec": {}}, train_cfg))
+                   supersteps=make_task_supersteps(tx, {"xvec": {}}, train_cfg, mesh), mesh=mesh)
     return state.model, state
 
 
@@ -326,4 +329,5 @@ def train_combined_model(
     return _two_task_run(CombinedCVector(model_cfg, dtype=train_cfg.compute_dtype),
                          features, alignments, dataset, train_cfg,
                          num_steps, model_cfg.am_context, dev, log, checkpoint_dir,
-                         num_heldout_utts, lr_factors={"am": am_lr_factor}, graft_from=am_model)
+                         num_heldout_utts, lr_factors={"am": am_lr_factor}, graft_from=am_model,
+                         mesh=mesh)

@@ -13,8 +13,11 @@ Port of the serving half of `sepi_tpu/recipes/pipeline.py`:
                             (`v2/run_sre10.sh:221-334`)
 
 Signatures follow the reference plus ``device=`` (default "cuda").  The
-reference's PRNG ``key`` that salts the dither is a plain int here, and
-the device mesh waits for later work.
+reference's PRNG ``key`` that salts the dither is a plain int here.  With
+a ``mesh`` (`parallel.make_mesh`) every rank runs the same call: the
+samplers draw the same global batches on every rank, each rank trains on
+its shard of each, extraction shards each batch, and only the primary
+writes checkpoints.
 """
 
 from __future__ import annotations
@@ -212,11 +215,28 @@ def prepare_features_phonetic(
     return PhoneticFeatures(full, voiced_out, nosil)
 
 
-def batch_iterator(sampler, train_cfg: TrainConfig):
+def local_batches(batches, mesh):
+    """This rank's shard of every batch of a stream of ChunkBatch /
+    FrameBatch objects or (batch, weight) pairs (each batch's array
+    fields cut to the rank's rows of the mesh's data axis)."""
+    from ..parallel.multihost import local_batch_slice
+
+    def cut(b):
+        sl = local_batch_slice(b.feats.shape[0], mesh)
+        return dataclasses.replace(b, **{
+            f.name: getattr(b, f.name)[sl] for f in dataclasses.fields(b)
+            if isinstance(getattr(b, f.name), np.ndarray)})
+
+    for item in batches:
+        yield (cut(item[0]), item[1]) if isinstance(item, tuple) else cut(item)
+
+
+def batch_iterator(sampler, train_cfg: TrainConfig, mesh=None):
     """Training batch stream with background prefetch (the `ark,bg:`
-    analog), so sampling overlaps device compute.  Close the returned
-    iterator (it owns a producer thread) when training finishes."""
-    it = iter(sampler)
+    analog), so sampling overlaps device compute; with a ``mesh``, this
+    rank's shard of every batch.  Close the returned iterator (it owns a
+    producer thread) when training finishes."""
+    it = iter(sampler) if mesh is None else local_batches(sampler, mesh)
     if train_cfg.prefetch > 0:
         from ..data.featstore import PrefetchLoader
 
@@ -229,14 +249,18 @@ def _host_params(state) -> Dict[str, torch.Tensor]:
 
 
 def run_checkpointed(trainer, it, num_steps: int, train_cfg: TrainConfig,
-                     checkpoint_dir: str, log=None, combine_objf=None):
+                     checkpoint_dir: str, log=None, combine_objf=None, mesh=None):
     """--train-stage semantics: resume from the latest checkpoint, run in
     ``checkpoint_every`` segments, save and log per-component parameter
     progress (nnet3-show-progress) at each boundary, and optionally pick
     the best checkpoint-tail combination (nnet3-combine) by
     ``combine_objf(state)``.  With ``train_cfg.profile`` each segment
     writes a `torch.profiler` trace under ``<parent of
-    checkpoint_dir>/profile/seg<start>-<end>``."""
+    checkpoint_dir>/profile/seg<start>-<end>``.  With a ``mesh`` only the
+    primary writes a checkpoint, and every rank waits for it before
+    going on."""
+    from ..parallel.multihost import barrier, is_primary
+
     done = latest_checkpoint(checkpoint_dir) or 0
     if done:
         trainer.state = load_checkpoint(trainer.state, checkpoint_dir, done)
@@ -253,8 +277,10 @@ def run_checkpointed(trainer, it, num_steps: int, train_cfg: TrainConfig,
         with profile(trace_dir, enabled=trace_dir is not None):
             state = trainer.run(it, num_steps=run_for)
         remaining -= run_for
-        save_checkpoint(state, checkpoint_dir, num_steps - remaining,
-                        keep_every=train_cfg.keep_checkpoint_every * train_cfg.checkpoint_every)
+        if mesh is None or is_primary():
+            save_checkpoint(state, checkpoint_dir, num_steps - remaining,
+                            keep_every=train_cfg.keep_checkpoint_every * train_cfg.checkpoint_every)
+        barrier(mesh)
         if log:
             cur_params = _host_params(state)
             log(num_steps - remaining, "progress", parameter_progress(prev_params, cur_params))
@@ -268,12 +294,12 @@ def run_checkpointed(trainer, it, num_steps: int, train_cfg: TrainConfig,
     return state
 
 
-def make_task_supersteps(tx, tasks, train_cfg: TrainConfig):
+def make_task_supersteps(tx, tasks, train_cfg: TrainConfig, mesh=None):
     """Per-task superstep functions when steps_per_dispatch > 1, else
     None.  ``tasks`` maps task name -> task_kwargs of the model call."""
     if train_cfg.steps_per_dispatch <= 1:
         return None
-    return {t: make_superstep(tx, task_kwargs=kw) for t, kw in tasks.items()}
+    return {t: make_superstep(tx, task_kwargs=kw, mesh=mesh) for t, kw in tasks.items()}
 
 
 def auto_heldout(dataset: Dataset, num_heldout_utts: Optional[int]) -> int:
@@ -311,12 +337,18 @@ def heldout_split(dataset: Dataset, num_heldout_utts: int,
 
 
 def training_device(train_cfg: TrainConfig, mesh, device: DeviceLike) -> torch.device:
-    """The device of a training entry point, after refusing what is not
-    ported: the device mesh.  (``train_cfg.compute_dtype`` was checked
-    when the config was made.)"""
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet")
-    return resolve_device(device)
+    """The device of a training entry point: ``device``, or with a
+    ``mesh`` this rank's device on it, which ``device`` must name (a
+    "cuda" without an index names any card).  (``train_cfg.compute_dtype``
+    was checked when the config was made.)"""
+    if mesh is None:
+        return resolve_device(device)
+    from ..parallel.mesh import mesh_device
+
+    dev, asked = mesh_device(mesh), torch.device(device)
+    if asked.type != dev.type or asked.index not in (None, dev.index):
+        raise ValueError(f"device {asked} disagrees with the mesh's device {dev}")
+    return dev
 
 
 @fp32_math()
@@ -370,7 +402,7 @@ def train_xvector_model(
                 label_map=label_map,
             )
             valid_batches = [valid_sampler.sample_batch(l) for l in valid_sampler.buckets[:2]]
-            eval_steps = {"xvec": make_eval_step()}
+            eval_steps = {"xvec": make_eval_step(mesh=mesh)}
 
     sampler = ChunkSampler(
         {u: features[u] for u in train_ds.utt_ids if u in features},
@@ -385,16 +417,16 @@ def train_xvector_model(
     # the reference traces its model on this batch; drawn here too so the
     # sampler's RNG stays in step with it
     sampler.sample_batch(sampler.buckets[0])
-    state = create_train_state(model, tx, train_cfg.seed, dev)
+    state = create_train_state(model, tx, train_cfg.seed, dev, mesh=mesh)
     trainer = Trainer(
-        steps={"xvec": make_xvec_step(tx)}, state=state, log_every=50, logger=log,
+        steps={"xvec": make_xvec_step(tx, mesh=mesh)}, state=state, log_every=50, logger=log,
         valid_batches=valid_batches, eval_steps=eval_steps,
         eval_every=train_cfg.steps_per_eval,
-        supersteps=make_task_supersteps(tx, {"xvec": {}}, train_cfg),
-        steps_per_dispatch=train_cfg.steps_per_dispatch,
+        supersteps=make_task_supersteps(tx, {"xvec": {}}, train_cfg, mesh),
+        steps_per_dispatch=train_cfg.steps_per_dispatch, mesh=mesh,
     )
 
-    it = batch_iterator(sampler, train_cfg)
+    it = batch_iterator(sampler, train_cfg, mesh)
     try:
         if checkpoint_dir:
             combine_objf = None
@@ -406,7 +438,7 @@ def train_xvector_model(
                                           for vb in valid_batches]))
 
             state = run_checkpointed(trainer, it, num_steps, train_cfg, checkpoint_dir,
-                                     log=log, combine_objf=combine_objf)
+                                     log=log, combine_objf=combine_objf, mesh=mesh)
         else:
             state = trainer.run(it, num_steps=num_steps)
     finally:
@@ -414,7 +446,7 @@ def train_xvector_model(
             it.close()
 
     calib = [sampler.sample_batch(l).feats for l in sampler.buckets[:3]]
-    state = finalize_batch_stats(state, calib)
+    state = finalize_batch_stats(state, calib, mesh=mesh)
     return state.model, state, label_map
 
 
@@ -433,15 +465,14 @@ def extract_and_score(
     a trainer returned (a `TrainState`, whose ``model`` weights are loaded
     into ``model``), a state_dict (e.g. from
     `bridge.xvector_state_dict_from_flax`), or None to keep the model's
-    own weights.  The device mesh is not ported: a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet")
+    own weights.  With a ``mesh`` each batch's rows are sharded over its
+    data axis and every rank returns every embedding."""
     if isinstance(state, TrainState):
         state = state.model.state_dict()
     if state is not None:
         model.load_state_dict(state)
     extractor = EmbeddingExtractor(model, extract_cfg, min_frames=min_frames,
-                                   model_kwargs=model_kwargs, device=device)
+                                   model_kwargs=model_kwargs, device=device, mesh=mesh)
     return extractor.extract_utterances(features)
 
 

@@ -14,20 +14,33 @@ reference:
 A step leaves its metrics on the device; the host reads them only where
 it logs or evaluates, so the card is not stalled once a step.  Input
 batches are staged ahead of use from pinned host memory on a side stream.
+
+With a ``mesh`` (`parallel.make_mesh`) a step is one step on the global
+batch, as the reference's GSPMD step is: each rank takes its shard of the
+batch, its batch norms average their moments over the mesh's data axis
+(`models.tdnn.sync_batch_norm`), it backpropagates its local mean loss,
+and the gradients are averaged over the data axis before the optimizer,
+so clipping, Newton-Schulz and every update see the same reduced gradient
+on every rank.  The reported objf and accuracy are reduced too, so every
+host decision (the divergence guard, held-out evaluation, checkpoint-tail
+combination) is the same on every rank.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.tdnn import batch_moments, lecun_normal_init
+from ..models.tdnn import batch_moments, lecun_normal_init, sync_batch_norm
+from ..parallel.mesh import (batch_sharded, broadcast_state, data_group, local_shard,
+                             reduce_sum_, superbatch_sharded)
 from .optim import OptimizerChain, apply_updates, global_norm
 
 
@@ -52,14 +65,32 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
     lecun_normal_init(model, seed)
 
 
+def _state_tensors(state: TrainState):
+    """Parameters, buffers and optimizer-state tensors, in a fixed order."""
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                yield from walk(x[k])
+
+    yield from (t.data for t in state.model.parameters())
+    yield from state.model.buffers()
+    yield from walk(state.opt_state)
+
+
 def create_train_state(model: torch.nn.Module, tx: OptimizerChain, seed: int,
-                       device: torch.device) -> TrainState:
+                       device: torch.device, mesh=None) -> TrainState:
     """Initialise ``model`` from ``seed``, move it to ``device`` and make
     the optimizer state.  (The reference also takes a sample batch to
-    trace the model; torch needs none.)"""
+    trace the model; torch needs none.)  With a ``mesh``, every rank then
+    takes the primary's parameters, buffers and optimizer state, as DDP
+    does, so ranks start equal whatever seed each was given."""
     init_weights(model, seed)
     state = TrainState(model.to(device), {}, 0)
     state.opt_state = tx.init(state.params())
+    if mesh is not None:
+        broadcast_state(_state_tensors(state))
     return state
 
 
@@ -72,17 +103,13 @@ def _logits(out):
     return out["logits"] if "logits" in out else out["am_logits"]
 
 
-def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
-    """The CE train step: ``step(state, feats, labels, weight)`` updates
-    ``state`` in place and returns {objf, accuracy, grad_norm} as device
-    scalars.  Labels are (B,) for speaker chunks or (B, L) for per-frame
-    targets; ``weight`` scales the loss (multitask weighting).
+def _reduced_bn(model: torch.nn.Module, group):
+    return contextlib.nullcontext() if group is None else sync_batch_norm(model, group)
 
-    A parameter the task's forward does not reach (the other head of a
-    multitask model) gets a zero gradient, as `jax.grad` gives it, so the
-    chain still moves it (momentum, shrink).  The zero tensors are made
-    once per step function and shared by its steps."""
-    kw = dict(task_kwargs or {})
+
+def _ce_step(tx: OptimizerChain, kw: Dict, group):
+    """The CE step on this rank's batch; with a process ``group`` the
+    batch norms, gradients and metrics are reduced over it."""
     zeros: Dict[str, torch.Tensor] = {}
 
     def zero_like(name: str, p: torch.Tensor) -> torch.Tensor:
@@ -94,18 +121,22 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
         model = state.model
         model.train()
         params = state.params()
-        logits = _logits(model(feats, **kw))
-        xent = _softmax_xent(logits, labels)
-        loss = weight * xent.mean()
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with _reduced_bn(model, group):
+            logits = _logits(model(feats, **kw))
+            xent = _softmax_xent(logits, labels)
+            loss = weight * xent.mean()
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {n: zero_like(n, p) if g is None else g
                  for (n, p), g in zip(params.items(), grads)}
         with torch.no_grad():
-            metrics = {
-                "objf": -xent.mean(),
-                "accuracy": (logits.argmax(-1) == labels).float().mean(),
-                "grad_norm": global_norm(grads.values()),
-            }
+            objf_acc = torch.stack([-xent.mean(), (logits.argmax(-1) == labels).float().mean()])
+            if group is not None:
+                # the gradient of the global mean loss: equal shards, so the
+                # mean of the ranks' local-mean gradients
+                reduce_sum_(grads.values(), group, mean=True)
+                reduce_sum_([objf_acc], group, mean=True)
+            metrics = {"objf": objf_acc[0], "accuracy": objf_acc[1],
+                       "grad_norm": global_norm(grads.values())}
         apply_updates(params, tx.update(grads, state.opt_state, params))
         state.step += 1
         return metrics
@@ -113,32 +144,64 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
     return step
 
 
-def make_am_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
+def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None):
+    """The CE train step: ``step(state, feats, labels, weight)`` updates
+    ``state`` in place and returns {objf, accuracy, grad_norm} as device
+    scalars.  Labels are (B,) for speaker chunks or (B, L) for per-frame
+    targets; ``weight`` scales the loss (multitask weighting).
+
+    A parameter the task's forward does not reach (the other head of a
+    multitask model) gets a zero gradient, as `jax.grad` gives it, so the
+    chain still moves it (momentum, shrink).  The zero tensors are made
+    once per step function and shared by its steps.
+
+    With a ``mesh``, ``feats`` and ``labels`` are the global batch: a
+    DTensor (`parallel.assemble_global_batch`, what `Trainer(mesh=...)`
+    stages) whose local shard this rank takes, or a tensor every rank
+    holds, of which this rank takes its data-axis rows; a batch the data
+    axis does not divide raises."""
+    body = _ce_step(tx, dict(task_kwargs or {}), data_group(mesh))
+    if mesh is None:
+        return body
+
+    def step(state: TrainState, feats, labels, weight=1.0):
+        return body(state, local_shard(feats, mesh), local_shard(labels, mesh), weight)
+
+    return step
+
+
+def make_am_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None):
     """The per-frame senone CE step: labels (B, L) aligned with the
     logits' frames (the sampler cuts the model's context margin around
     them), against ``logits`` or, in a multitask model, ``am_logits``.
     The same step as `make_xvec_step`, as in the reference."""
-    return make_xvec_step(tx, task_kwargs)
+    return make_xvec_step(tx, task_kwargs, mesh)
 
 
-def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None):
+def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None):
     """K train steps back to back: ``sstep(state, feats (K, B, ...),
     labels (K, B, ...), weights (K,))`` runs the CE step on each slice in
-    order and returns each metric stacked to (K,)."""
-    body = make_xvec_step(tx, task_kwargs)
+    order and returns each metric stacked to (K,).  With a ``mesh`` the
+    batch axis (dim 1) is sharded over the data axis."""
+    body = _ce_step(tx, dict(task_kwargs or {}), data_group(mesh))
 
     def sstep(state: TrainState, feats, labels, weights):
+        if mesh is not None:
+            feats, labels = local_shard(feats, mesh, 1), local_shard(labels, mesh, 1)
         out = [body(state, feats[k], labels[k], weights[k]) for k in range(feats.shape[0])]
         return {m: torch.stack([o[m] for o in out]) for m in out[0]}
 
     return sstep
 
 
-def make_eval_step(task_kwargs: Optional[Dict] = None):
+def make_eval_step(task_kwargs: Optional[Dict] = None, mesh=None):
     """Held-out objective: ``ev(state, feats, labels)`` -> {objf,
     accuracy} as device scalars, in eval mode (running statistics).
-    Labels are (B,) speaker labels or (B, L) frame labels."""
+    Labels are (B,) speaker labels or (B, L) frame labels.  With a
+    ``mesh`` every rank scores the whole batch and the values are averaged
+    over the data axis, so every rank reads the same numbers."""
     kw = dict(task_kwargs or {})
+    group = data_group(mesh)
 
     def ev(state: TrainState, feats, labels):
         model = state.model
@@ -147,8 +210,10 @@ def make_eval_step(task_kwargs: Optional[Dict] = None):
             logits = _logits(model(_to(feats, model), **kw))
             labels = _to(labels, model)
             xent = _softmax_xent(logits, labels)
-            return {"objf": -xent.mean(),
-                    "accuracy": (logits.argmax(-1) == labels).float().mean()}
+            m = torch.stack([-xent.mean(), (logits.argmax(-1) == labels).float().mean()])
+            if group is not None:
+                reduce_sum_([m], group, mean=True)
+            return {"objf": m[0], "accuracy": m[1]}
 
     return ev
 
@@ -158,21 +223,25 @@ def _to(x, model: torch.nn.Module) -> torch.Tensor:
     return torch.as_tensor(x).to(dev)
 
 
-def finalize_batch_stats(state: TrainState, batches, model_kwargs=None) -> TrainState:
+def finalize_batch_stats(state: TrainState, batches, model_kwargs=None,
+                         mesh=None) -> TrainState:
     """Kaldi-style exact inference statistics for batch norm: a
     train-mode forward per calibration batch records every batch norm's
     (mean, biased var) without touching the running statistics; raw
     moments E[x] and E[x^2] are pooled across the batches (so the spread
-    of the batch means counts) and written as the running statistics."""
+    of the batch means counts) and written as the running statistics.
+    With a ``mesh`` each rank forwards its shard of every (global)
+    calibration batch and the moments are those of the whole batch."""
     model = state.model
     kw = dict(model_kwargs or {})
     sum_m: Dict[str, torch.Tensor] = {}
     sum_x2: Dict[str, torch.Tensor] = {}
     n = 0
     model.train()
-    with torch.no_grad(), batch_moments(model) as moments:
+    with torch.no_grad(), batch_moments(model) as moments, _reduced_bn(model, data_group(mesh)):
         for feats in batches:
-            model(_to(feats, model), **kw)
+            x = _to(feats, model)
+            model(x if mesh is None else local_shard(x, mesh), **kw)
             for name, recs in moments.items():
                 mean, var = recs.pop()
                 x2 = var + mean * mean
@@ -194,6 +263,12 @@ def finalize_batch_stats(state: TrainState, batches, model_kwargs=None) -> Train
     return state
 
 
+# the reference's aliases (`xvec_eval_step` / `am_eval_step` are one function here)
+xvec_train_step = make_xvec_step
+am_train_step = make_am_step
+xvec_eval_step = am_eval_step = make_eval_step
+
+
 @dataclasses.dataclass
 class Trainer:
     """Outer loop: batches from an iterator, periodic diagnostics.
@@ -205,6 +280,11 @@ class Trainer:
     'valid:<task>'.  Divergence guard (`get_successful_models`,
     `train/common.py:103-137`): a non-finite training objective at a log
     boundary aborts with the last good record.
+
+    With a ``mesh`` (the reference's multi-process contract) every rank
+    feeds its own shard of every batch; the staged arrays become DTensors
+    over the mesh (`parallel.assemble_global_batch`) and the steps, built
+    with the same mesh, reduce over it.
     """
 
     steps: Dict[str, Callable]
@@ -225,6 +305,7 @@ class Trainer:
     # steps completed by earlier run() calls (set when resuming), so
     # logged step numbers stay global
     steps_done: int = 0
+    mesh: Optional[Any] = None
 
     def _device(self) -> torch.device:
         return next(self.state.model.parameters()).device
@@ -310,6 +391,17 @@ class Trainer:
         """Copy units to the device ``device_prefetch`` ahead of use.  On a
         GPU the arrays go through pinned host memory and a side stream, so
         the copy of the next unit overlaps the current unit's compute."""
+        if self.mesh is None:
+            yield from self._stage_local(units)
+            return
+        from ..parallel.multihost import assemble_global_batch
+
+        for kind, task, f, l, w, k in self._stage_local(units):
+            spec = (superbatch_sharded if kind == "super" else batch_sharded)(self.mesh)
+            yield (kind, task, assemble_global_batch(f, self.mesh, spec),
+                   assemble_global_batch(l, self.mesh, spec), w, k)
+
+    def _stage_local(self, units):
         dev = self._device()
         depth = self.device_prefetch
         if dev.type != "cuda":

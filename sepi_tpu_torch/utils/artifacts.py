@@ -12,7 +12,9 @@ dicts flatten with '/' separators.
 
 A copy of `sepi_tpu/utils/artifacts.py`: the same keys for the same
 configs, and the same files, so a workdir of either package resumes in
-the other.
+the other.  With a device ``mesh`` only the primary runs and writes a
+stage (a stage function has no collectives); the other ranks wait for it
+and read the files.
 """
 
 from __future__ import annotations
@@ -66,9 +68,26 @@ def _unflatten(d: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 
 
 class ArtifactCache:
-    def __init__(self, root: str):
+    def __init__(self, root: str, mesh=None):
         self.root = root
+        self.mesh = mesh
         os.makedirs(root, exist_ok=True)
+
+    def _primary_runs(self, have: bool) -> bool:
+        """Whether this rank runs a stage that is ``have`` cached.  With a
+        mesh every rank has looked before the primary writes, so the ranks
+        agree on ``have``; the other ranks skip the stage."""
+        if self.mesh is None:
+            return not have
+        from ..parallel.multihost import barrier, is_primary
+
+        barrier(self.mesh)
+        return not have and is_primary()
+
+    def _done(self) -> None:
+        from ..parallel.multihost import barrier
+
+        barrier(self.mesh)
 
     def _paths(self, stage: str, key: str):
         base = os.path.join(self.root, f"{stage}-{key}")
@@ -102,14 +121,15 @@ class ArtifactCache:
     ) -> Dict[str, Any]:
         """Run-or-load: the --stage skip, keyed by config content."""
         key = config_key(key_objs)
-        if self.has(name, key):
+        have = self.has(name, key)
+        if self._primary_runs(have):
             if log:
-                log(f"[{name}] cached ({key})")
-            return self.load(name, key)[0]
-        if log:
-            log(f"[{name}] running ({key})")
-        out = fn()
-        self.save(name, key, out, meta)
+                log(f"[{name}] running ({key})")
+            self.save(name, key, fn(), meta)
+        elif have and log:
+            log(f"[{name}] cached ({key})")
+        if not have:
+            self._done()
         return self.load(name, key)[0]
 
     def stage_store(
@@ -135,10 +155,15 @@ class ArtifactCache:
 
         key = config_key(key_objs)
         prefix = os.path.join(self.root, f"{name}-{key}.store")
-        if os.path.exists(prefix + ".json") and os.path.exists(prefix + ".npy"):
+        have = os.path.exists(prefix + ".json") and os.path.exists(prefix + ".npy")
+        if self._primary_runs(have):
             if log:
-                log(f"[{name}] cached ({key})")
-            return FeatStore.open(prefix)
-        if log:
-            log(f"[{name}] running ({key})")
-        return FeatStore.write_stream(prefix, fn())
+                log(f"[{name}] running ({key})")
+            store = FeatStore.write_stream(prefix, fn())
+            if self.mesh is None:
+                return store
+        elif have and log:
+            log(f"[{name}] cached ({key})")
+        if not have:
+            self._done()
+        return FeatStore.open(prefix)

@@ -8,11 +8,18 @@ built with g++ at first use into ``build/sepi_tpu_torch/``
     feats = {key: read_matrix(path, off) for key, (path, off) in read_scp("feats.scp")}
     with ArkWriter("emb.ark", "emb.scp") as w:
         w.put_vector("utt1", x)
+
+The alignment readers (`iter_int_vector_ark`, `read_ali_ark`,
+`read_ali_dir`) are pure Python over streamed binary archives, as the
+reference's are; `read_feats_scp` goes through the binding.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import gzip
+import os
 import threading
 from typing import Iterator, Tuple
 
@@ -108,6 +115,64 @@ def read_int_vector(ark_path: str, offset: int) -> np.ndarray:
     if rc != 0:
         raise IOError(f"ki_read_int_vector({ark_path}:{offset}) failed rc={rc}")
     return _take(lib, data, (n.value,))
+
+
+def iter_int_vector_ark(fileobj) -> Iterator[Tuple[str, np.ndarray]]:
+    """(key, int32 vector) entries of a streamed binary ark (alignment
+    archives have no scp): per entry key ' ' '\\0' 'B' <size byte 4>
+    <int32 count> <raw int32 data>.  A text-format entry, a wrong size
+    byte, a negative or overlong count, or trailing garbage raises."""
+    data = fileobj.read()
+    pos, n = 0, len(data)
+    while pos < n:
+        sp = data.find(b" ", pos)
+        if sp < 0:
+            if data[pos:].strip():
+                raise ValueError("trailing garbage in int-vector ark")
+            break
+        key = data[pos:sp].decode()
+        pos = sp + 1
+        if data[pos:pos + 2] != b"\x00B":
+            raise ValueError(f"{key}: not a binary ark entry (text-format archives are "
+                             "not supported; write with --binary=true)")
+        pos += 2
+        if data[pos:pos + 1] != b"\x04":
+            raise ValueError(f"{key}: expected int32 size byte")
+        pos += 1
+        if pos + 4 > n:
+            raise ValueError(f"{key}: truncated count")
+        cnt = int(np.frombuffer(data, "<i4", 1, pos)[0])
+        pos += 4
+        if cnt < 0 or pos + 4 * cnt > n:
+            raise ValueError(f"{key}: corrupt count {cnt}")
+        yield key, np.frombuffer(data, "<i4", cnt, pos).copy()
+        pos += 4 * cnt
+
+
+def read_ali_ark(path: str) -> dict:
+    """One alignment archive, gzipped (`ali.1.gz`, the form
+    `steps/align_fmllr.sh` writes) or plain -> {utt: (T,) int32}."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return dict(iter_int_vector_ark(f))
+
+
+def read_feats_scp(scp_path: str) -> dict:
+    """A Kaldi feats.scp -> {utt: (T, D) float32}, any mix of FM/DM/CM/
+    CM2/CM3 entries."""
+    return {key: read_matrix(path, off) for key, (path, off) in read_scp(scp_path)}
+
+
+def read_ali_dir(ali_dir: str, pattern: str = "ali.*.gz") -> dict:
+    """A Kaldi alignment directory (the `exp/tri6a_4k_ali` analog): every
+    ``ali.N.gz`` job shard merged into one {utt: labels}."""
+    paths = sorted(glob.glob(os.path.join(ali_dir, pattern)))
+    if not paths:
+        raise FileNotFoundError(f"no {pattern} under {ali_dir}")
+    out: dict = {}
+    for p in paths:
+        out.update(read_ali_ark(p))
+    return out
 
 
 class ArkWriter:

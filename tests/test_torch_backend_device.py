@@ -1,8 +1,9 @@
 """Port parity: the on-device backend (`sepi_tpu_torch.backend.device`)
 against `sepi_tpu.backend.device` and the float64 numpy path.
 
-Every case of tests/test_backend_device.py but the sharded scorer (the
-mesh is not ported), with that file's tolerances: the score matrix within
+Every case of tests/test_backend_device.py but the sharded scorer (held
+against the reference across processes in tests/test_torch_multiprocess.py),
+with that file's tolerances: the score matrix within
 1e-3 of its scale and 1e-3 relative of float64; PLDA EM psi within 0.05
 and its trial scores within 2% of the scale; LDA rows cosine 1 +- 1e-3;
 length-norm 1e-5.  The port runs on ``device="cpu"`` in float32 (TF32

@@ -25,6 +25,7 @@ from sepi_tpu_torch.models.tdnn import TdnnSpec
 from sepi_tpu_torch.recipes import drivers, extract_and_score, train_xvector_model
 from sepi_tpu_torch.recipes.drivers import AugmentOptions, run_v2
 from sepi_tpu_torch.utils import kaldi_models, read_scp, read_vector
+from torch_dist import cpu_world_mesh
 
 torch.set_num_threads(2)
 
@@ -177,7 +178,7 @@ def test_audio_fingerprint_busts_stale_feature_cache():
 def test_extract_and_score_takes_the_trainers_state(corpus):
     """train_xvector_model's (model, TrainState) chains into
     extract_and_score: the same embeddings as the state_dict form and as
-    the model's own weights; a mesh is refused."""
+    the model's own weights; on a 1-rank mesh of the CPU, the same again."""
     from sepi_tpu_torch.models import XVector
     from sepi_tpu_torch.recipes import prepare_features_nosil
     from sepi_tpu_torch.train import TrainState
@@ -195,6 +196,8 @@ def test_extract_and_score_takes_the_trainers_state(corpus):
     for u in nosil:
         np.testing.assert_array_equal(by_state[u], by_dict[u])
         np.testing.assert_array_equal(by_state[u], own[u])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        extract_and_score(model, state, nosil, EXTRACT_CFG, MODEL_CFG.min_frames,
-                          mesh=object(), device="cpu")
+    with cpu_world_mesh() as mesh:
+        by_mesh = extract_and_score(model, state, nosil, EXTRACT_CFG, MODEL_CFG.min_frames,
+                                    mesh=mesh, device="cpu")
+    for u in nosil:
+        np.testing.assert_array_equal(by_mesh[u], by_state[u])

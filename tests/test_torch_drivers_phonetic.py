@@ -18,6 +18,7 @@ from sepi_tpu_torch.models.tdnn import TdnnSpec
 from sepi_tpu_torch.recipes import prepare_features_phonetic, run_s5, select_voiced_ali
 from sepi_tpu_torch.recipes.drivers import run_v3, run_v4, run_v5
 from sepi_tpu_torch.utils import read_scp
+from torch_dist import cpu_world_mesh
 
 torch.set_num_threads(2)
 
@@ -107,9 +108,9 @@ def test_phonetic_drivers_need_alignments(tmp_path, corpus):
     with pytest.raises(ValueError, match="alignments"):
         run_v3(corpus.dataset, corpus.audio, {}, corpus.trials, _enroll(corpus),
                str(tmp_path), train_cfg=TRAIN_CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with cpu_world_mesh() as mesh, pytest.raises(ValueError, match="mesh"):
         run_v5(corpus.dataset, corpus.audio, {}, corpus.trials, _enroll(corpus),
-               str(tmp_path), mesh=object(), device="cpu")
+               str(tmp_path), mesh=mesh, device="cuda")
     assert not np.any([f.startswith("feats_train") for f in os.listdir(tmp_path)])
 
 

@@ -116,7 +116,12 @@ def test_single_utterance_and_seed_gating():
 
 
 def test_unsupported_config_raises():
-    with pytest.raises(ValueError):
-        tf.FeatureExtractor(tcfg.FrontendConfig(raw_energy=False), device="cpu")
-    with pytest.raises(ValueError):
-        tf.FeatureExtractor(tcfg.FrontendConfig(frame_shift_ms=9.125), device="cpu")
+    """A config outside the MFCC kernel's gate raises in `mfcc`; the
+    filterbank, which no kernel computes, takes it."""
+    fe = tf.FeatureExtractor(tcfg.FrontendConfig(raw_energy=False), device="cpu")
+    x = np.ones(4000, np.float32)
+    with pytest.raises(ValueError, match="gate"):
+        fe.mfcc(x)
+    assert fe.fbank(x)[0].shape == (50, 23)
+    with pytest.raises(ValueError, match="gate"):
+        tf.FeatureExtractor(tcfg.FrontendConfig(frame_shift_ms=9.125), device="cpu").mfcc(x)

@@ -9,7 +9,8 @@ port's machine need not have.)  Each kernel is compared with its plain
 PyTorch version on the same device at small shapes; the training step,
 the Muon orthogonalisation and the input staging are held against the CPU,
 as are a bf16 model's forward and steps, the on-device backend and
-streaming extraction.
+streaming extraction; data-parallel steps run at world size 1 over NCCL
+and on two gloo ranks that share the card.
 """
 
 import dataclasses
@@ -636,3 +637,74 @@ def test_cli_gauntlet_on_the_card(cuda, tmp_path, monkeypatch, capsys):
                  "--workdir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "v5 vs v2" in out and out.count("[gauntlet:") >= 2
+
+
+# ------------------------------------------------------------- the mesh
+
+
+def _mesh_steps_rank(out_path, batches):
+    """One rank of a world on the card: 3 momentum-SGD steps of the tiny
+    x-vector on the global batches over the mesh; each rank saves its
+    state_dict to ``out_path.<rank>``."""
+    import torch.distributed as dist
+
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.parallel import make_mesh
+    from sepi_tpu_torch.train import make_xvec_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    chain, st = _tiny_train_state(dev, OptimizerConfig(preconditioner="none"))
+    step = make_xvec_step(chain, mesh=mesh)
+    for f, l in batches:
+        step(st, torch.from_numpy(f).to(dev), torch.from_numpy(l).to(dev), 1.0)
+    torch.save({k: v.cpu() for k, v in st.model.state_dict().items()},
+               f"{out_path}.{dist.get_rank()}")
+
+
+def _plain_steps(device, batches):
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import make_xvec_step
+
+    chain, st = _tiny_train_state(device, OptimizerConfig(preconditioner="none"))
+    for f, l in batches:
+        make_xvec_step(chain)(st, torch.from_numpy(f).to(device), torch.from_numpy(l).to(device),
+                              1.0)
+    return {k: v.cpu() for k, v in st.model.state_dict().items()}
+
+
+def _assert_step_close(got, want):
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_nccl_world_of_one_steps_like_the_plain_step(cuda, tmp_path):
+    """NCCL starts, and its collectives run in the step, at world size 1:
+    the DP steps equal the plain steps within the reference's DP-step
+    tolerance (cuDNN's weight gradients vary from run to run)."""
+    from sepi_tpu_torch.parallel.dryrun import launch
+
+    torch.backends.cudnn.allow_tf32 = False
+    batches = _train_batches()
+    launch(1, _mesh_steps_rank, (str(tmp_path / "p"), batches), device="cuda", timeout_s=300)
+    _assert_step_close(torch.load(f"{tmp_path / 'p'}.0"), _plain_steps(cuda, batches))
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two processes on one card over gloo (NCCL refuses a shared device):
+    the ranks end bit-equal and within the DP-step tolerance of one
+    process's steps on the global batches."""
+    from sepi_tpu_torch.parallel.dryrun import launch
+
+    torch.backends.cudnn.allow_tf32 = False
+    batches = _train_batches()
+    launch(2, _mesh_steps_rank, (str(tmp_path / "p"), batches), device="cuda", backend="gloo",
+           timeout_s=300)
+    a, b = (torch.load(f"{tmp_path / 'p'}.{r}") for r in (0, 1))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    _assert_step_close(a, _plain_steps(cuda, batches))

@@ -49,6 +49,8 @@ BACKEND_MODULES = ("backend.device", "backend.normalize", "backend.fusion")
 # the command line, Kaldi model interop and gauntlet slice's new modules
 CLI_MODULES = ("cli", "__main__", "data.corpora", "data.ldc", "data.asr_prep", "utils.nnet3",
                "utils.nnet2_io", "recipes.gauntlet")
+# the mesh slice's new modules
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.multihost", "parallel.dryrun")
 
 
 def _env():
@@ -65,8 +67,8 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     n, leaked, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and leaked == "[]", out.stdout
-    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES + BACKEND_MODULES + CLI_MODULES) <= set(
-        names.split(","))
+    assert set(f"sepi_tpu_torch.{m}" for m in V1_MODULES + BACKEND_MODULES + CLI_MODULES
+               + PARALLEL_MODULES) <= set(names.split(","))
 
 
 def test_no_import_statement_names_the_reference():
@@ -92,10 +94,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from sepi_tpu_torch.extract import EmbeddingExtractor, streaming_embed
     from sepi_tpu_torch.models import V2_XVECTOR, XVector
     from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.parallel import initialize
     from sepi_tpu_torch.recipes import extract_and_score, prepare_features_nosil
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     audio = {"u": np.zeros(8000, np.float32)}
+    with pytest.raises(RuntimeError, match="cuda"):
+        initialize()
     with pytest.raises(RuntimeError, match="cuda"):
         FeatureExtractor(FrontendConfig())
     with pytest.raises(RuntimeError, match="cuda"):

@@ -5,7 +5,8 @@
   extract_and_score -> backend_eval: each system's EER on its own corpus
   below tests/test_phonetic.py's bound (0.15);
 - every phonetic trainer raises without a GPU unless asked for the CPU,
-  refuses a mesh, and trains in bfloat16 when asked (float32 parameters).
+  refuses a device its mesh does not hold, and trains in bfloat16 when
+  asked (float32 parameters).
 """
 
 import pytest
@@ -28,6 +29,7 @@ from sepi_tpu_torch.recipes import (
     train_combined_model,
     train_multitask_model,
 )
+from torch_dist import cpu_world_mesh
 
 torch.set_num_threads(2)
 
@@ -107,8 +109,8 @@ def test_phonetic_entry_points_refuse_cpu_fallback(chain, monkeypatch):
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="cuda"):
             call()
-        with pytest.raises(NotImplementedError, match="mesh"):
-            call(mesh=object(), device="cpu")
+        with cpu_world_mesh() as mesh, pytest.raises(ValueError, match="mesh"):
+            call(mesh=mesh, device="cuda")
         model, _ = call(train_cfg=bf16, device="cpu")
         assert compute_dtype(model) == torch.bfloat16
         assert all(p.dtype == torch.float32 for p in model.parameters())

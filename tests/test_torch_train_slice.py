@@ -41,6 +41,7 @@ from sepi_tpu_torch.recipes import (
 )
 from sepi_tpu_torch.train import trainer as port_trainer
 from sepi_tpu_torch.train.checkpoint import latest_checkpoint
+from torch_dist import cpu_world_mesh
 
 torch.set_num_threads(2)
 
@@ -125,8 +126,8 @@ def test_training_entry_point_refuses_cpu_fallback(data, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         train_xvector_model(feats, tc.dataset, num_steps=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        train_xvector_model(feats, tc.dataset, num_steps=1, mesh=object(), device="cpu")
+    with cpu_world_mesh() as mesh, pytest.raises(ValueError, match="mesh"):
+        train_xvector_model(feats, tc.dataset, num_steps=1, mesh=mesh, device="cuda")
     tcfg = XVectorConfig(feat_dim=23, num_speakers=6, embed_dim=32,
                          frame_specs=tuple(TdnnSpec(d, o) for d, o in SPECS))
     bf16 = TrainConfig(chunks=ChunkConfig(**CHUNKS), compute_dtype="bfloat16", **TRAIN)

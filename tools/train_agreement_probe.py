@@ -14,8 +14,11 @@ off (as 7c runs) and on, and logs per run:
 
 The corpus, the features (phase 7b's corpus, MFCC on the card) and the
 CPU's 3 steps are made once; each fresh process runs the card's side.
+With ``--after-phases`` each process first runs chip_smoke.py's phases
+1-7b (build, kernels, the extraction, s5 and training paths), as the
+smoke script does before 7c, and only determinism off is run.
 
-    python3 tools/train_agreement_probe.py [--runs 20]
+    python3 tools/train_agreement_probe.py [--runs 20] [--after-phases]
 
 writes one JSON line per run to ``--out`` (default
 build/train_agreement/runs.jsonl) and a summary per mode to standard
@@ -107,9 +110,26 @@ def prepare(device="cuda"):
           f"{time.perf_counter() - t0:.1f} s; objf {objf}", flush=True)
 
 
-def one(deterministic: bool, device="cuda"):
+def _phases_before_7c():
+    """chip_smoke.py's phases 1-7b in this process, in the script's order."""
+    import chip_smoke
+
+    env = chip_smoke.phase_environment()
+    chip_smoke.phase_build()
+    chip_smoke.phase_kernels(env)
+    chip_smoke.phase_viterbi(env)
+    chip_smoke.phase_main_path()
+    chip_smoke.phase_throughput(env)
+    chip_smoke.phase_s5(env)
+    chip_smoke.phase_train_step(env)
+    chip_smoke.phase_train_path(env)
+
+
+def one(deterministic: bool, device="cuda", after_phases=False):
     """The card's side in this process; prints one JSON line."""
     torch = _setup()
+    if after_phases:
+        _phases_before_7c()
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,7 +156,7 @@ def one(deterministic: bool, device="cuda"):
                                                         "wgrad", "dgrad", "implicit"))})
     cudnn = torch.backends.cudnn
     print(json.dumps({
-        "deterministic": deterministic, "err": err, "tol": chip_smoke.TRAJ_TOL,
+        "deterministic": deterministic, "after_phases": after_phases, "err": err, "tol": chip_smoke.TRAJ_TOL,
         "objf_card": objf, "objf_cpu": ref["objf"],
         "profiled_err": chip_smoke._traj(pd2, ref["pc"], ref["p0"]), "objf_profiled": objf2,
         "cudnn": {"version": cudnn.version(), "enabled": cudnn.enabled,
@@ -153,6 +173,8 @@ def main(argv=None) -> int:
     p.add_argument("--runs", type=int, default=20, help="fresh processes per mode")
     p.add_argument("--deterministic", type=int, default=0)
     p.add_argument("--device", default="cuda", help="'cpu' rehearses the probe without a card")
+    p.add_argument("--after-phases", action="store_true",
+                   help="run chip_smoke.py's phases 1-7b in each process first (determinism off)")
     p.add_argument("--out", default=os.path.join(WORK, "runs.jsonl"),
                    help="one JSON line per run")
     args = p.parse_args(argv)
@@ -160,19 +182,20 @@ def main(argv=None) -> int:
         prepare(args.device)
         return 0
     if args.mode == "one":
-        one(bool(args.deterministic), args.device)
+        one(bool(args.deterministic), args.device, args.after_phases)
         return 0
     prepare(args.device)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     rows = []
     with open(args.out, "w") as f:
-        for det in (0, 1):
+        for det in ((0,) if args.after_phases else (0, 1)):
             for i in range(args.runs):
                 t0 = time.perf_counter()
                 proc = subprocess.run([sys.executable, os.path.abspath(__file__), "one",
-                                       "--deterministic", str(det), "--device", args.device],
+                                       "--deterministic", str(det), "--device", args.device]
+                                      + (["--after-phases"] if args.after_phases else []),
                                       cwd=ROOT,
-                                      capture_output=True, text=True, timeout=600)
+                                      capture_output=True, text=True, timeout=900)
                 line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else "{}"
                 if proc.returncode != 0:
                     line = json.dumps({"deterministic": bool(det), "error": proc.stderr[-2000:]})
