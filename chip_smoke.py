@@ -125,8 +125,22 @@ non-zero:
      at phase 9's settings, the primary writing, its unseen-speaker EER
      below phase 9's initial weights'.  Wall seconds against a 150 s
      budget.
+ 14. the parity slice: a. the five MFCC presets under spectral_mode="auto"
+     on 4 x 3 s (dithered) through the kernel, each with its launch count
+     (> 0) and its error against the plain version, and three configs
+     outside the kernel's gate (raw_energy=False, frame_shift_ms=9.125,
+     frame shift > frame length), dithered and not, through the stepwise
+     route on the card (no launch) against the CPU within 1e-3; b. a mesh
+     over ranks 1 and 2 of a 3-rank gloo world sharing the card:
+     create_train_state and 13b's 3 DP steps against a 2-rank world's at
+     13b's limit, within a 120 s process limit, the mesh's first rank the
+     one artifact writer, rank 0 raising when handed the mesh; c.
+     graft_entry.entry() (full-size V2, 5000 speakers, 8 x 300 x 23) on the
+     card against the CPU within 1e-4 of the embedding's scale, and its
+     forward's median ms.  Wall seconds against a 60 s budget.
 The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Without a CUDA device the
+limit, and {"ok": true, "device": {...}}, whose count is the one card the
+run used (the script shows its ranks that card alone).  Without a CUDA device the
 script exits non-zero before printing any result.
 """
 
@@ -3067,12 +3081,13 @@ def _p13_reading(got, want, tol=P13_TOL) -> float:
                for k in want)
 
 
-def _p13_ms(fn, dev, iters=P13_TIMED) -> float:
-    """Median ms of ``fn()``: CUDA events on the card, the wall clock on
-    the CPU (a rehearsal)."""
+def _p13_ms(fn, dev, iters=P13_TIMED, warmup=2) -> float:
+    """Median ms of ``fn()`` after ``warmup`` calls: CUDA events on the
+    card, the wall clock on the CPU (a rehearsal)."""
     if dev.type == "cuda":
-        return time_ms(fn, iters=iters, warmup=2)
-    fn()
+        return time_ms(fn, iters=iters, warmup=warmup)
+    for _ in range(warmup):
+        fn()
     times = []
     for _ in range(iters):
         t = time.perf_counter()
@@ -3515,7 +3530,260 @@ def phase_mesh(env, drv, device="cuda", cfg=None, v2_steps=P9_V2_STEPS, train_cf
             "ms": {"13a": a["ms"], "13b": b["ms"]}, "eer": d0["eer"], "wall": wall}
 
 
+# 14: the parity slice, the paths that closed the port's last gaps to the
+# reference: the five MFCC presets through the kernel, configs outside its
+# gate through the stepwise route, a mesh over part of the world, and the
+# counterpart of __graft_entry__.entry().
+P14_BUDGET_S = 60.0  # phase 14's wall, reported against this budget
+P14_RANK_TIMEOUT_S = 120.0  # 14b: each launch of ranks, killed after this
+P14_PRESETS = ("MFCC_SRE_IVECTOR", "MFCC_SRE_XVECTOR", "MFCC_SNIP_EDGES", "MFCC_HIRES",
+               "MFCC_ASR")
+P14_OFF_GATE = {  # configs the fused MFCC's gate refuses
+    "raw_energy=False": dict(raw_energy=False),
+    "frame_shift_ms=9.125": dict(frame_shift_ms=9.125),
+    "frame_shift>frame_length": dict(frame_length_ms=8.0, frame_shift_ms=10.0),
+}
+P14_FEAT_TOL = 1e-3  # stepwise features, card vs CPU (tests/test_torch_frontend.py)
+P14_ENTRY_TOL = 1e-4  # entry()'s embedding, card vs CPU, of the embedding's scale
+P14_SUBSET = [1, 2]  # 14b's mesh in a world of 3: rank 0 left out
+
+
+def _p14_audio(device):
+    """14a's batch: 4 x 3 s at 8 kHz (a 16 kHz preset reads it as 1.5 s),
+    lengths 3, 2.2, 1.1 and 0.4 s, with per-utterance dither seeds."""
+    n = int(3.0 * SR)
+    return _mfcc_inputs(4, [n, int(2.2 * SR), int(1.1 * SR), int(0.4 * SR)], n, 14, device)
+
+
+def phase_parity_frontend(env, device="cuda"):
+    """14a: each MFCC preset under the default mode through the kernel (its
+    launch count read around it, > 0 on the card) against the plain
+    version; each config outside the gate through the stepwise route on
+    ``device`` (no launch) against the same route on the CPU, dithered and
+    undithered."""
+    import torch
+
+    from sepi_tpu_torch import config as tcfg
+    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.ops.features import FeatureExtractor
+    from sepi_tpu_torch.ops.framing import num_frames
+
+    dev = torch.device(device)
+    x, lens, dev_seeds = _p14_audio(dev)
+    seeds = dev_seeds.cpu().numpy()
+    problems, presets, off = [], {}, {}
+    for name in P14_PRESETS:
+        cfg = getattr(tcfg, name)
+        fe = FeatureExtractor(cfg, dev)
+        mfcc_cuda.mfcc_fused.launches = 0
+        feats, mask = fe.mfcc(x, lens, utt_seeds=seeds)
+        launches = mfcc_cuda.mfcc_fused.launches
+        tmax = int(num_frames(x.shape[1], cfg))
+        want, wmask = mfcc_cuda.mfcc_fused_reference(x, lens, cfg, tmax, dev_seeds)
+        err = float((feats - want).abs().max())
+        presets[name] = (launches, err)
+        if not (fe.fused and torch.equal(mask, wmask) and err <= TOL
+                and bool(torch.isfinite(feats).all())):
+            problems.append(f"14a {name}: fused {fe.fused}, error {err:.3e}")
+        if dev.type == "cuda" and launches <= 0:
+            problems.append(f"14a {name}: the MFCC kernel did not launch")
+    cpu = (x.cpu(), lens.cpu(), seeds)
+    for label, kw in P14_OFF_GATE.items():
+        for dither in (1.0, 0.0):
+            cfg = tcfg.FrontendConfig(dither=dither, **kw)
+            fe = FeatureExtractor(cfg, dev)
+            mfcc_cuda.mfcc_fused.launches = 0
+            feats, mask = fe.mfcc(x, lens, utt_seeds=seeds)
+            launches = mfcc_cuda.mfcc_fused.launches
+            want, wmask = FeatureExtractor(cfg, "cpu").mfcc(cpu[0], cpu[1], utt_seeds=cpu[2])
+            err = float((feats.cpu() - want).abs().max())
+            off[f"{label} dither={dither}"] = (tuple(feats.shape), launches, err)
+            if fe.fused or launches or not (torch.equal(mask.cpu(), wmask)
+                                            and err <= P14_FEAT_TOL):
+                problems.append(f"14a {label} dither={dither}: fused {fe.fused}, launches "
+                                f"{launches}, error {err:.3e}")
+    where = env["smi"] if env else device
+    log(f"phase 14a MFCC presets under spectral_mode='auto' on {where}, 4 x 3 s dithered with "
+        "seeds (launches, max abs err against the plain version, limit "
+        f"{TOL}): " + "; ".join(f"{k} {n}, {e:.3e}" for k, (n, e) in presets.items())
+        + f"; outside the kernel's gate, the stepwise route on {device} against the CPU's "
+        f"(shape, launches, max abs err, limit {P14_FEAT_TOL}): "
+        + "; ".join(f"{k} {s}, {n}, {e:.3e}" for k, (s, n, e) in off.items()))
+    return {"launches": sum(n for n, _ in presets.values()),
+            "mfcc_err": max(e for _, e in presets.values()),
+            "stepwise_err": max(e for *_, e in off.values()), "problems": problems}
+
+
+def _p14b_rank(out_dir, cfg, devices):
+    """14b, each rank: the mesh over ``devices`` (the world when None).  A
+    rank outside it is handed the mesh and must raise; the mesh's ranks run
+    create_train_state (the mesh's first rank seeded 3, the others not),
+    P13_STEPS momentum-SGD DP steps on 13b's batches and an artifact stage
+    of the parameters, and save their parameters."""
+    import torch
+
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import XVector
+    from sepi_tpu_torch.parallel import is_primary, make_mesh
+    from sepi_tpu_torch.parallel.mesh import mesh_device
+    from sepi_tpu_torch.train import build_optimizer, create_train_state, make_xvec_step
+    from sepi_tpu_torch.utils.artifacts import ArtifactCache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_mesh(devices=devices)
+    rank = torch.distributed.get_rank()
+    dev = mesh_device(mesh)
+    chain, _ = build_optimizer(OptimizerConfig(preconditioner="none", proportional_shrink=0.0),
+                               1000)
+    rec = {"rank": rank, "member": mesh.get_coordinate() is not None}
+    if not rec["member"]:
+        try:
+            create_train_state(XVector(cfg), chain, 3, dev, mesh=mesh)
+            rec["raised"] = None
+        except ValueError as e:
+            rec["raised"] = str(e)
+    else:
+        primary = is_primary(mesh)
+        st = create_train_state(XVector(cfg), chain, 3 if primary else 1000 + rank, dev,
+                                mesh=mesh)
+        step = make_xvec_step(chain, mesh=mesh)
+        rec["objf"] = [float(step(st, f.to(dev), lab.to(dev), 1.0)["objf"])
+                       for f, lab in _p13_batches(cfg)]
+        wrote = []
+
+        def params():
+            wrote.append(rank)
+            return {k: v.float().numpy() for k, v in _flat(st.model).items()}
+
+        ArtifactCache(os.path.join(out_dir, "artifacts"), mesh).stage(
+            "params", {"steps": P13_STEPS}, params)
+        torch.save(_flat(st.model), os.path.join(out_dir, f"p.{rank}.pt"))
+        rec.update(primary=primary, wrote=bool(wrote))
+    rec["secs"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"r.{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def phase_parity_mesh(env, root, device="cuda", cfg=None):
+    """14b: three gloo ranks share the card, the mesh over ranks 1 and 2;
+    their parameters against a 2-rank world's after the same steps, one
+    writer, and rank 0 raising when handed the mesh."""
+    import torch
+
+    from sepi_tpu_torch.models import V2_XVECTOR
+    from sepi_tpu_torch.parallel.dryrun import launch
+
+    width = "full-width V2" if cfg is None else "narrow x-vector"
+    cfg = cfg or dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    recs, problems = {}, []
+    for label, n, devices in (("subset", 3, P14_SUBSET), ("world", 2, None)):
+        out = os.path.join(root, label)
+        os.makedirs(out)
+        t = time.perf_counter()
+        launch(n, _p14b_rank, (out, cfg, devices), device=device, backend="gloo",
+               timeout_s=P14_RANK_TIMEOUT_S)
+        recs[label] = {"wall": time.perf_counter() - t, "ranks": []}
+        for r in range(n):
+            with open(os.path.join(out, f"r.{r}.json")) as fh:
+                recs[label]["ranks"].append(json.load(fh))
+    sub, world = recs["subset"]["ranks"], recs["world"]["ranks"]
+    want = torch.load(os.path.join(root, "world", "p.0.pt"))
+    got = {r: torch.load(os.path.join(root, "subset", f"p.{r}.pt")) for r in P14_SUBSET}
+    reading = max(_p13_reading(g, want) for g in got.values())
+    equal = all(torch.equal(g[k], v) for g in got.values() for k, v in want.items())
+    a, b = (got[r] for r in P14_SUBSET)
+    members_equal = all(torch.equal(a[k], b[k]) for k in a)
+    writers = [r["rank"] for r in sub if r.get("wrote")]
+    outside = sub[0]
+    if not (reading <= 1.0 and members_equal and writers == [P14_SUBSET[0]]
+            and not outside["member"]
+            and outside["raised"] and "rank 0 is outside the mesh" in outside["raised"]
+            and [r["rank"] for r in world if r.get("wrote")] == [0]):
+        problems.append(f"14b: reading {reading:.3e}, the mesh's ranks bit-equal "
+                        f"{members_equal}, writers {writers}, rank 0 {outside.get('raised')!r}")
+    where = env["smi"] if env else device
+    log(f"phase 14b a mesh over ranks {P14_SUBSET} of a 3-rank gloo world sharing one card on "
+        f"{where}: create_train_state and {P13_STEPS} momentum-SGD DP steps of the {width} at "
+        f"{TRAIN_B} x {TRAIN_T} against a 2-rank world's: reading {reading:.3e} (limit 1, "
+        f"rtol = atol = {P13_TOL}), bit-equal to it {equal} (not required: cuDNN's weight gradients "
+        f"may vary between processes), the mesh's two ranks bit-equal {members_equal}; objf subset "
+        f"{[round(x, 5) for x in sub[1]['objf']]}, world {[round(x, 5) for x in world[0]['objf']]}; "
+        f"artifact writers {writers} (the mesh's first rank); rank 0 raised: "
+        f"{outside.get('raised')!r}; the 3 ranks finished in {recs['subset']['wall']:.1f} s "
+        f"(limit {P14_RANK_TIMEOUT_S:.0f} s; each rank "
+        + "/".join(f"{r['secs']:.1f}" for r in sub) + f" s), the world in "
+        f"{recs['world']['wall']:.1f} s")
+    return {"reading": reading, "equal": equal, "writers": writers, "problems": problems}
+
+
+def phase_parity_entry(env, device="cuda", timed=10):
+    """14c: graft_entry.entry() at full size on ``device`` against the same
+    forward on the CPU, and the forward's median ms (CUDA events on the
+    card, 3 warm-ups)."""
+    import torch
+
+    from sepi_tpu_torch.graft_entry import entry
+
+    fwd, (model, feats) = entry(device=device)
+    emb = fwd(model, feats)
+    fwd_c, (model_c, feats_c) = entry(device="cpu")
+    want = fwd_c(model_c, feats_c)
+    scale = float(want.abs().max())
+    gap = float((emb.cpu() - want).abs().max())
+    ms = _p13_ms(lambda: fwd(model, feats), torch.device(device), iters=timed, warmup=3)
+    problems = []
+    if not (tuple(emb.shape) == (8, 512) and bool(torch.isfinite(emb).all())
+            and gap <= P14_ENTRY_TOL * scale):
+        problems.append(f"14c: shape {tuple(emb.shape)}, gap {gap:.3e} of scale {scale:.3e}")
+    where = env["smi"] if env else device
+    log(f"phase 14c graft_entry.entry() on {where}: the full-size V2 ({model.cfg.num_speakers} "
+        f"speakers), embedding_a of {tuple(feats.shape)} features {tuple(emb.shape)}, against "
+        f"the CPU's forward: max abs gap {gap:.3e} = {gap / scale:.3e} of its scale {scale:.3f} "
+        f"(limit {P14_ENTRY_TOL}); forward median {ms:.3f} ms over {timed} after 3 warm-ups "
+        f"({'CUDA events' if device != 'cpu' else 'wall clock'})")
+    return {"gap": gap / scale, "ms": ms, "problems": problems}
+
+
+def phase_parity(env, device="cuda", cfg=None, workdir=None, timed=10):
+    """Phase 14: 14a the frontend (presets through the kernel, configs
+    outside its gate through the stepwise route), 14b a mesh over part of
+    the world, 14c the entry point.  ``cfg`` narrows 14b's x-vector for a
+    CPU rehearsal (``device="cpu"``)."""
+    import shutil
+
+    root = workdir or os.path.join(ROOT, "build", "smoke_parity")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    wall = {}
+    t = time.perf_counter()
+    a = phase_parity_frontend(env, device)
+    wall["14a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    b = phase_parity_mesh(env, root, device, cfg)
+    wall["14b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    c = phase_parity_entry(env, device, timed)
+    wall["14c"] = time.perf_counter() - t
+    total = sum(wall.values())
+    where = env["smi"] if env else device
+    log(f"phase 14 wall on {where}: " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items())
+        + f"; {total:.1f} s against its {P14_BUDGET_S:.0f} s budget "
+        f"({'within' if total <= P14_BUDGET_S else 'over'})")
+    shutil.rmtree(root, ignore_errors=True)
+    problems = a["problems"] + b["problems"] + c["problems"]
+    if problems:
+        raise AssertionError("phase 14: " + "; ".join(problems))
+    return {"launches": a["launches"], "mfcc_err": a["mfcc_err"],
+            "stepwise_err": a["stepwise_err"], "reading": b["reading"], "equal": b["equal"],
+            "entry_gap": c["gap"], "entry_ms": c["ms"], "wall": wall}
+
+
 def main() -> int:
+    # the smoke drives one card: its spawned ranks see that card alone
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible.split(",")[0] if visible else "0"
     import torch
 
     if not torch.cuda.is_available():
@@ -3580,6 +3848,7 @@ def main() -> int:
         f"{P11_BUDGET_S:.0f} s budget ({'within' if wall11 <= P11_BUDGET_S else 'over'})")
     cli_run = phase_cli(env, drv["corpus"])
     mesh_run = phase_mesh(env, drv)
+    parity = phase_parity(env)
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -3592,11 +3861,13 @@ def main() -> int:
     mfcc["launches_bf16_driver_path"] = bf16["launches"]
     mfcc["launches_cli_path"] = cli_run["launches"]["mfcc_fused"]
     mfcc["launches_mesh_path"] = mesh_run["launches"]
+    mfcc["launches_parity_path"] = parity["launches"]
     mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
         {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
                           for c, (n, e) in dnn["mfcc"].items()}}.items())}
     mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"],
-                               bf16["mfcc_err"], cli_run["mfcc_err"], mesh_run["mfcc_err"]]
+                               bf16["mfcc_err"], cli_run["mfcc_err"], mesh_run["mfcc_err"],
+                               parity["mfcc_err"]]
                               + [e for _, e in v1["mfcc"].values()]
                               + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]
@@ -3620,6 +3891,7 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [mfcc, vit_rec]}), flush=True)
     print(nvidia_smi_line(), flush=True)
+    # CUDA_VISIBLE_DEVICES holds the one card the run used (set above)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

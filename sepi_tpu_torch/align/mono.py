@@ -333,11 +333,13 @@ def train_mono_aligner(
     states_per_phone: int = 3,
     comps_per_state: int = 2,
     seed: int = 0,
+    batched: bool = True,
     log=None,
     device: DeviceLike = "cuda",
 ) -> MonoAligner:
     """Flat-start + Viterbi-EM monophone training (train_mono.sh analog);
-    each EM re-alignment goes through the bucketed batched Viterbi."""
+    each EM re-alignment goes through the bucketed batched Viterbi, with
+    ``batched`` either way (`align_corpus`)."""
     import time as _time
 
     dev = resolve_device(device)
@@ -356,7 +358,8 @@ def train_mono_aligner(
     for it in range(num_iters):
         t0 = _time.time()
         comps = 1 if it < num_iters // 2 else comps_per_state
-        alignments = align_corpus(aligner, aligned, transcripts, lexicon, device=dev)
+        alignments = align_corpus(aligner, aligned, transcripts, lexicon, batched=batched,
+                                  device=dev)
         aligner = _estimate_from_alignment(
             features, alignments, num_pdf, comps, lexicon.phones, states_per_phone, rng, dev
         )
@@ -371,11 +374,16 @@ def align_corpus(
     features: Mapping[str, np.ndarray],
     transcripts: Mapping[str, Sequence[str]],
     lexicon: Lexicon,
+    batched: bool = False,
     batch_size: int = 32,
     device: DeviceLike = "cuda",
 ) -> Dict[str, np.ndarray]:
     """Forced alignment for every utterance -> {utt: (T,) pdf ids}, in
-    length-sorted batches of ``batch_size`` (`align_graphs`)."""
+    length-sorted batches of ``batch_size`` through the Viterbi kernel
+    (`align_graphs`).  ``batched`` is the reference's choice between its
+    per-utterance scan and its batched Viterbi, which it holds equal
+    (`tests/test_align.py:190`); here both values take the kernel, and the
+    alignments do not depend on it."""
     cache = _GraphCache(lexicon, aligner.states_per_phone)
     graphs = {u: cache.get(transcripts[u]) for u in features if u in transcripts}
     return align_graphs(aligner, graphs, features, batch_size, device=device)

@@ -245,11 +245,14 @@ class TiedAligner:
         self,
         features: Mapping[str, np.ndarray],
         transcripts: Mapping[str, Sequence[str]],
+        batched: bool = False,
         device: DeviceLike = "cuda",
     ) -> Dict[str, np.ndarray]:
         """Forced alignment -> per-frame tied-senone ids, vectorized per
         utterance: the graph state path gives block indices, and the dense
-        tree table turns context lookups into one fancy-index."""
+        tree table turns context lookups into one fancy-index.  Both
+        values of ``batched`` align through the Viterbi kernel
+        (`mono.align_corpus`); the result does not depend on it."""
         spp = self.mono.states_per_phone
         cache = _GraphCache(self.lexicon, spp)
         graphs = {u: cache.get(transcripts[u]) for u in features if u in transcripts}
@@ -313,6 +316,7 @@ def refine_tied_aligner(
     num_iters: int = 2,
     comps_per_senone: int = 2,
     seed: int = 0,
+    batched: bool = True,
     init_alignments: Optional[Mapping[str, np.ndarray]] = None,
     log=None,
     device: DeviceLike = "cuda",
@@ -324,12 +328,13 @@ def refine_tied_aligner(
 
     ``init_alignments`` bootstraps EM from given senone labels instead of
     re-aligning with the (raw-feature-space) mono front: required when
-    ``features`` live in a transformed space (LDA+MLLT)."""
+    ``features`` live in a transformed space (LDA+MLLT).  ``batched``
+    changes nothing (`mono.align_corpus`)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     spp = tied.mono.states_per_phone
     ali = (dict(init_alignments) if init_alignments is not None
-           else tied.senone_alignments(features, transcripts, device=dev))
+           else tied.senone_alignments(features, transcripts, batched=batched, device=dev))
     graphs = {
         u: context_graph(tied.lexicon, transcripts[u], tied.tree, spp)
         for u in features
@@ -370,14 +375,16 @@ def train_tied_aligner(
     min_count: float = 100.0,
     states_per_phone: int = 3,
     seed: int = 0,
+    batched: bool = True,
     log=None,
     device: DeviceLike = "cuda",
 ) -> TiedAligner:
-    """Mono training + context-stat collection + tree building."""
+    """Mono training + context-stat collection + tree building.
+    ``batched`` changes nothing (`mono.align_corpus`)."""
     dev = resolve_device(device)
     mono = train_mono_aligner(
         features, transcripts, lexicon, mono_iters, states_per_phone, seed=seed,
-        log=log, device=dev,
+        batched=batched, log=log, device=dev,
     )
     if log:
         log("[tied] collecting context stats")

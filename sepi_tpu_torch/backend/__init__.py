@@ -2,6 +2,7 @@ from .device import (
     compute_lda_device,
     length_normalize_device,
     plda_score_matrix_device,
+    plda_score_matrix_sharded,
     train_plda_device,
 )
 from .fusion import fit_fusion_weights, linear_fusion
@@ -22,6 +23,7 @@ __all__ = [
     "linear_fusion",
     "plda_score_matrix",
     "plda_score_matrix_device",
+    "plda_score_matrix_sharded",
     "s_norm",
     "score_trials",
     "subtract_global_mean",

@@ -106,9 +106,9 @@ def plda_score_matrix_sharded(plda: Plda, enroll, test, mesh, num_utts=None,
     i scores block i against the whole test set with
     `plda_score_matrix_device` on its own device, and the blocks are
     gathered, so every rank returns the (M, N) float32 matrix."""
-    from ..parallel.mesh import all_gather_rows, mesh_device
+    from ..parallel.mesh import all_gather_rows, data_group, mesh_device
 
-    group = mesh.get_group(axis)
+    group = data_group(mesh, axis)
     n_dev, idx = mesh[axis].size(), mesh.get_local_rank(axis)
     if isinstance(enroll, torch.Tensor):
         enroll = enroll.detach().cpu()

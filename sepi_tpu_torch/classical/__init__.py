@@ -5,6 +5,7 @@ from .gmm import (
     FullGmm,
     GmmStats,
     accumulate_stats,
+    accumulate_stats_sharded,
     diag_to_full,
     full_gmm_from_posteriors,
     gselect_posteriors,
@@ -28,6 +29,7 @@ __all__ = [
     "IvectorExtractor",
     "IvectorStats",
     "accumulate_stats",
+    "accumulate_stats_sharded",
     "diag_to_full",
     "extract_ivectors",
     "full_gmm_from_posteriors",

@@ -209,9 +209,9 @@ def accumulate_stats_sharded(gmm, x, mesh, num_gselect: int = 0, min_post: float
     are padded to ceil(N / n) * n rows, rank i accumulates block i with the
     padding marked invalid, and the sums come back on every rank.  Equal to
     `accumulate_stats` up to summation order."""
-    from ..parallel.mesh import reduce_sum_
+    from ..parallel.mesh import data_group, reduce_sum_
 
-    group = mesh.get_group(axis)
+    group = data_group(mesh, axis)
     n_dev, idx = mesh[axis].size(), mesh.get_local_rank(axis)
     dev = gmm.means.device
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)

@@ -1,7 +1,7 @@
 """The configs of the ported paths.
 
 A copy of the dataclasses these paths read from `sepi_tpu/config.py`
-(`FrontendConfig` and its presets `MFCC_SRE_IVECTOR`/`MFCC_HIRES`,
+(`FrontendConfig` and its five `MFCC_*` presets,
 `VadConfig`, `CmvnConfig`, `ChunkConfig`, `OptimizerConfig`,
 `TrainConfig`, `ExtractConfig`, `BackendConfig`, `UbmConfig`,
 `IvectorConfig`, `AlignConfig`, `MeshConfig`), with the same fields and
@@ -75,12 +75,20 @@ class FrontendConfig:
 
 # Named presets matching the reference conf/ files.
 MFCC_SRE_IVECTOR = FrontendConfig(num_ceps=20)  # v1/conf/mfcc.conf
+MFCC_SRE_XVECTOR = FrontendConfig(num_ceps=23)  # v2,v3/conf/mfcc.conf
+MFCC_SNIP_EDGES = FrontendConfig(num_ceps=23, snip_edges=True)  # v3 ASR feats
 MFCC_HIRES = FrontendConfig(  # v1/conf/mfcc_hires.conf
     use_energy=False,
     num_mel_bins=40,
     num_ceps=40,
     low_freq=40.0,
     high_freq=-200.0,
+)
+MFCC_ASR = FrontendConfig(  # v1/conf/mfcc_asr.conf
+    use_energy=False,
+    low_freq=20.0,
+    high_freq=0.0,
+    num_ceps=13,
 )
 
 

@@ -4,21 +4,27 @@ feature extractor.
 Port of `sepi_tpu/ops/features.py`.  The constants (mel bank, DCT,
 lifter, and the DFT basis with DC removal, preemphasis and the window
 folded in) are built in float64 numpy exactly as the reference builds
-them.  `FeatureExtractor.mfcc` follows the reference's main path on its
-accelerator: every config that `mfcc_cuda.supported` accepts, dithered
-or not, goes through the fused MFCC (`ops/mfcc_cuda.py`), whose dither is
-the waveform-level counter-hash field of the TPU kernel.  Configs outside
-that gate raise: the port has no second MFCC path.
+them.  `FeatureExtractor.mfcc` takes the reference's routes, chosen from
+the config and ``spectral_mode`` alone before anything runs:
+- a config that `mfcc_cuda.supported` accepts, under "auto" or "pallas",
+  goes through the fused MFCC (`ops/mfcc_cuda.py`), dithered or not, whose
+  dither is the waveform-level counter-hash field of the TPU kernel; on a
+  CUDA device its kernel launches or raises;
+- any other config, and "slices" or "conv", takes the reference's
+  stepwise route (`_spectral` and the cepstral tail of `_mfcc_impl`) in
+  plain torch ops on the extractor's device.  The reference holds its two
+  stepwise variants equal, and here they are one implementation.
 
 `FeatureExtractor.fbank` (`compute-fbank-feats`) is the reference's
-`_fbank_impl`, which no TPU kernel computes: plain torch ops on the
-extractor's device.  Undithered, raw frames times the folded DFT basis
-(one GEMM); dithered, `framing.frame_signal`'s per-frame counter-hash
-field, the window chain and the plain DFT basis; then power, mel and log.
+`_fbank_impl` on the same stepwise spectrum, which no TPU kernel computes.
+Undithered with raw energy, raw frames times the folded DFT basis (one
+GEMM); otherwise `framing.frame_signal`'s chain (its per-frame
+counter-hash dither when seeded) and the plain DFT basis; then power, mel
+and log.
 
 Kaldi conventions preserved: HTK mel scale 1127*ln(1+f/700) with
 triangular banks; orthogonal DCT-II; lifter 1 + 0.5*Q*sin(pi*k/Q);
-with use_energy, C0 is the raw-frame log energy.
+with use_energy, C0 is the log energy, floored at log(energy_floor).
 """
 
 from __future__ import annotations
@@ -128,6 +134,9 @@ def _power_spectrum(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     return spec[..., :k] ** 2 + spec[..., k:] ** 2
 
 
+SPECTRAL_MODES = ("auto", "pallas", "slices", "conv")
+
+
 class FeatureExtractor:
     """Batched MFCC and filterbank for a fixed FrontendConfig on one device.
 
@@ -137,14 +146,27 @@ class FeatureExtractor:
         feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)  # (B, T, C)
         fbank, mask = fe.fbank(samples, lengths)         # (B, T, num_mel_bins)
 
-    On a CUDA device every MFCC batch runs the hand-written MFCC kernel; on
-    the CPU (only when asked for) its plain PyTorch version runs.  A config
-    outside the kernel's gate raises in `mfcc`.
+    ``spectral_mode`` (the reference's):
+    - "auto" (default) and "pallas": a config inside the fused MFCC's gate
+      (`mfcc_cuda.supported`) runs the hand-written MFCC kernel on a CUDA
+      device and its plain PyTorch version on the CPU (only when asked
+      for); a config outside the gate takes the stepwise route;
+    - "slices" and "conv": the stepwise route (framing, DFT power, mel,
+      log, DCT, lifter, energy) in plain torch ops, for every config.
+    The route depends on the config and the mode alone, never on a failure:
+    a kernel that fails to build or launch raises.
     """
 
-    def __init__(self, cfg: FrontendConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: FrontendConfig, device: DeviceLike = "cuda",
+                 spectral_mode: str = "auto"):
+        from .mfcc_cuda import supported
+
+        if spectral_mode not in SPECTRAL_MODES:
+            raise ValueError(f"unknown spectral_mode {spectral_mode!r}; "
+                             f"expected one of {SPECTRAL_MODES}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.fused = spectral_mode in ("auto", "pallas") and supported(cfg)
 
     def _batch(self, samples, lengths, max_frames):
         samples = torch.as_tensor(samples, dtype=torch.float32, device=self.device)
@@ -161,23 +183,68 @@ class FeatureExtractor:
             max_frames = int(num_frames(samples.shape[1], self.cfg))
         return samples, lengths, max_frames, squeeze
 
+    def _seeds(self, utt_seeds) -> Optional[np.ndarray]:
+        """The dither's per-utterance seeds, or None: undithered without
+        seeds or with ``cfg.dither == 0``, as in the reference."""
+        if self.cfg.dither == 0.0 or utt_seeds is None:
+            return None
+        return np.asarray(utt_seeds, np.int32)
+
+    def _spectral(self, samples, lengths, max_frames, seeds):
+        """(log-mel (B, T, M), log-energy (B, T), mask (B, T)), the
+        reference's `_spectral`: undithered with raw energy, DC removal,
+        preemphasis and the window ride in the folded basis; otherwise
+        `frame_signal` runs Kaldi's chain frame by frame."""
+        cfg = self.cfg
+        dev = self.device
+        if seeds is None and cfg.raw_energy:
+            frames, mask = raw_frames(samples, lengths, cfg, max_frames)
+            s1 = frames.sum(-1)
+            s2 = (frames * frames).sum(-1)
+            energy = s2 - s1 * s1 / cfg.frame_length if cfg.remove_dc_offset else s2
+            log_e = torch.log(torch.clamp(energy, min=_EPS))
+            basis = fused_dft_basis(cfg)
+        else:
+            frames, log_e, mask = frame_signal(samples, lengths, cfg, max_frames, seeds=seeds)
+            basis = dft_basis(cfg)
+        power = _power_spectrum(frames, torch.from_numpy(basis).to(dev))
+        mel = torch.from_numpy(mel_banks(cfg)).to(dev)
+        return torch.log(torch.clamp(power @ mel, min=_EPS)), log_e, mask
+
+    @fp32_math()
+    def _mfcc_stepwise(self, samples, lengths, max_frames, seeds):
+        """The reference's MFCC tail on `_spectral`: DCT, lifter, and C0
+        replaced by the floored log energy when ``cfg.use_energy``."""
+        cfg = self.cfg
+        log_mel, log_e, mask = self._spectral(samples, lengths, max_frames, seeds)
+        dct = torch.from_numpy(dct_matrix(cfg.num_ceps, cfg.num_mel_bins)).to(self.device)
+        lifter = torch.from_numpy(lifter_coeffs(cfg.num_ceps, cfg.cepstral_lifter))
+        ceps = (log_mel @ dct) * lifter.to(self.device)
+        if cfg.use_energy:
+            if cfg.energy_floor > 0.0:
+                log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+            ceps = torch.cat([log_e[..., None], ceps[..., 1:]], dim=-1)
+        return ceps * mask[..., None], mask
+
     def mfcc(self, samples, lengths=None, max_frames: Optional[int] = None,
              utt_seeds=None):
         """(B, N) or (N,) samples -> (feats (B, T, C), mask (B, T)).
 
         ``utt_seeds`` ((B,) int32, `dither.utt_seeds`) turns on the
-        counter-hash dither when ``cfg.dither != 0``; without seeds the
+        counter-hash dither when ``cfg.dither != 0``: the fused MFCC's
+        waveform field, or `frame_signal`'s per-frame field on the
+        stepwise route (each its reference route's); without seeds the
         features are undithered, as in the reference."""
-        from .mfcc_cuda import mfcc_fused, supported
-
-        if not supported(self.cfg):
-            raise ValueError(f"frontend config outside the fused MFCC's gate: {self.cfg}")
         samples, lengths, max_frames, squeeze = self._batch(samples, lengths, max_frames)
-        seeds = None
-        if self.cfg.dither != 0.0 and utt_seeds is not None:
-            seeds = torch.as_tensor(np.asarray(utt_seeds, np.int32), device=self.device)
-        feats, mask = mfcc_fused(samples.contiguous(), lengths, self.cfg,
-                                 max_frames, seeds)
+        seeds = self._seeds(utt_seeds)
+        if self.fused:
+            from .mfcc_cuda import mfcc_fused
+
+            if seeds is not None:
+                seeds = torch.from_numpy(seeds).to(self.device)
+            feats, mask = mfcc_fused(samples.contiguous(), lengths, self.cfg, max_frames, seeds)
+        else:
+            feats, mask = self._mfcc_stepwise(samples, lengths, max_frames, seeds)
         if squeeze:
             return feats[0], mask[0]
         return feats, mask
@@ -188,20 +255,9 @@ class FeatureExtractor:
         """(B, N) or (N,) samples -> (log-mel filterbank (B, T, num_mel_bins),
         or the linear mel energies when ``cfg.use_log_fbank`` is off; mask
         (B, T)).  ``utt_seeds`` dithers as `framing.frame_signal` does."""
-        cfg = self.cfg
         samples, lengths, max_frames, squeeze = self._batch(samples, lengths, max_frames)
-        mel = torch.from_numpy(mel_banks(cfg)).to(self.device)
-        seeds = utt_seeds if cfg.dither != 0.0 else None
-        if seeds is None and cfg.raw_energy:
-            # DC removal, preemphasis and the window folded into the basis
-            frames, mask = raw_frames(samples, lengths, cfg, max_frames)
-            basis = fused_dft_basis(cfg)
-        else:
-            frames, _, mask = frame_signal(samples, lengths, cfg, max_frames, seeds=seeds)
-            basis = dft_basis(cfg)
-        power = _power_spectrum(frames, torch.from_numpy(basis).to(self.device))
-        out = torch.log(torch.clamp(power @ mel, min=_EPS))
-        if not cfg.use_log_fbank:
+        out, _, mask = self._spectral(samples, lengths, max_frames, self._seeds(utt_seeds))
+        if not self.cfg.use_log_fbank:
             out = torch.exp(out)
         out = out * mask[..., None]
         if squeeze:

@@ -18,6 +18,12 @@ sub-group:
 - `broadcast_state`: the primary's parameters, buffers and optimizer state
   at the start of training, as DDP does.
 
+A mesh may cover part of the world (`make_mesh(devices=[1, 2])`): its
+collectives, its barrier (`multihost.barrier`) and its primary
+(`multihost.is_primary(mesh)`, the mesh's first rank) are the mesh's own.
+A rank outside the mesh that is handed it raises (`require_member`) and
+never waits in a collective.
+
 The TDNNs fit one card, so the model axis replicates (size 1 in every
 caller), as in the reference.
 """
@@ -40,7 +46,9 @@ def make_mesh(num_devices: Optional[int] = None, model_parallel_size: int = 1,
     """A (data, model) `DeviceMesh` of shape (n // model_parallel_size,
     model_parallel_size) over the first ``num_devices`` ranks of the world
     (or the given global ``devices`` ranks).  Every rank of the world calls
-    it.  The mesh's device type is the one `multihost.initialize` set up."""
+    it, members or not (sub-group creation needs every rank); a rank
+    outside the mesh takes no further part.  The mesh's device type is the
+    one `multihost.initialize` set up."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from .multihost import world_device_type
@@ -95,9 +103,24 @@ def host_shard_dataset(dataset, host_index: Optional[int] = None,
 # ------------------------------------------------------------ mesh queries
 
 
-def data_group(mesh: Optional[DeviceMesh]):
-    """The mesh's data-axis process group (None without a mesh)."""
-    return None if mesh is None else mesh.get_group(DATA)
+def mesh_ranks(mesh: DeviceMesh) -> list:
+    """The mesh's global ranks in row-major order; the first is its primary."""
+    return mesh.mesh.flatten().tolist()
+
+
+def require_member(mesh: DeviceMesh) -> None:
+    """Raise ValueError on a rank outside ``mesh``."""
+    if mesh.get_coordinate() is None:
+        raise ValueError(f"rank {dist.get_rank()} is outside the mesh over ranks "
+                         f"{mesh_ranks(mesh)}: only its ranks may use it")
+
+
+def data_group(mesh: Optional[DeviceMesh], axis: str = DATA):
+    """The mesh's ``axis`` process group (None without a mesh)."""
+    if mesh is None:
+        return None
+    require_member(mesh)
+    return mesh.get_group(axis)
 
 
 def data_size(mesh: Optional[DeviceMesh]) -> int:
@@ -105,7 +128,20 @@ def data_size(mesh: Optional[DeviceMesh]) -> int:
 
 
 def data_index(mesh: Optional[DeviceMesh]) -> int:
-    return 0 if mesh is None else mesh.get_local_rank(DATA)
+    if mesh is None:
+        return 0
+    require_member(mesh)
+    return mesh.get_local_rank(DATA)
+
+
+def mesh_groups(mesh: DeviceMesh) -> list:
+    """Process groups whose collectives, taken in order, span every rank of
+    ``mesh``: the model axis's (when it has more than one rank), then the
+    data axis's.  A broadcast from each group's first rank in turn carries
+    the mesh's first rank's values to all; a barrier on each in turn waits
+    for all."""
+    require_member(mesh)
+    return [mesh.get_group(a) for a in (MODEL, DATA) if mesh[a].size() > 1]
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
@@ -182,9 +218,14 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(out)
 
 
-def broadcast_state(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
-    """Overwrite ``tensors`` in place with global rank ``src``'s values
-    (every rank passes the same list, in the same order)."""
+def broadcast_state(tensors: Iterable[torch.Tensor], mesh: Optional[DeviceMesh] = None) -> None:
+    """Overwrite ``tensors`` in place with the primary's values: the mesh's
+    first rank's over the mesh's groups, or without a mesh world rank 0's
+    over the world (every rank passes the same list, in the same order)."""
+    tensors = list(tensors)
+    groups = [None] if mesh is None else mesh_groups(mesh)
     with torch.no_grad():
-        for t in tensors:
-            dist.broadcast(t, src)
+        for g in groups:
+            src = 0 if g is None else dist.get_global_rank(g, 0)
+            for t in tensors:
+                dist.broadcast(t, src, group=g)

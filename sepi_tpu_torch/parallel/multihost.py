@@ -25,7 +25,8 @@ import torch
 import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
-from .mesh import batch_sharded, data_index, data_size
+from .mesh import (batch_sharded, data_index, data_size, mesh_groups, mesh_ranks,
+                   require_member)
 
 # the device type the world was initialised for ("cuda" or "cpu")
 _DEVICE_TYPE = {"value": None}
@@ -103,15 +104,22 @@ def shutdown() -> None:
     _DEVICE_TYPE["value"] = None
 
 
-def is_primary() -> bool:
-    """Rank 0 of the world, or a process outside any world."""
+def is_primary(mesh=None) -> bool:
+    """The process that writes: with ``mesh``, the mesh's first rank (a
+    rank outside the mesh raises); without, rank 0 of the world, or a
+    process outside any world."""
+    if mesh is not None:
+        require_member(mesh)
+        return dist.get_rank() == mesh_ranks(mesh)[0]
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def barrier(mesh) -> None:
-    """Wait for every rank when ``mesh`` is given (a no-op without)."""
+    """Wait for every rank of ``mesh`` (a no-op without one; a rank
+    outside the mesh raises)."""
     if mesh is not None:
-        dist.barrier()
+        for g in mesh_groups(mesh):
+            dist.barrier(group=g)
 
 
 def local_batch_slice(global_batch: int, mesh=None) -> slice:
@@ -131,20 +139,21 @@ def local_batch_slice(global_batch: int, mesh=None) -> slice:
     return slice(i * per, (i + 1) * per)
 
 
-def assemble_global_batch(local, mesh, spec=None):
+def assemble_global_batch(local_arrays, mesh, spec=None):
     """The global batch from every process's local shard (the counterpart
     of `jax.make_array_from_process_local_data`): a DTensor over ``mesh``
     with placements ``spec`` (default `mesh.batch_sharded`) whose local
-    tensor is ``local`` on this rank's device.  Tuples, lists and dicts
+    tensor is ``local_arrays`` on this rank's device.  Tuples, lists and dicts
     map leaf by leaf.  The steps take its local shard."""
     from torch.distributed.tensor import DTensor
 
     from .mesh import mesh_device
 
-    if isinstance(local, dict):
-        return {k: assemble_global_batch(v, mesh, spec) for k, v in local.items()}
-    if isinstance(local, (tuple, list)):
-        return type(local)(assemble_global_batch(v, mesh, spec) for v in local)
+    x = local_arrays
+    if isinstance(x, dict):
+        return {k: assemble_global_batch(v, mesh, spec) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(assemble_global_batch(v, mesh, spec) for v in x)
     placements = spec if spec is not None else batch_sharded(mesh)
-    t = local if isinstance(local, torch.Tensor) else torch.from_numpy(np.asarray(local))
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
     return DTensor.from_local(t.to(mesh_device(mesh)), mesh, placements, run_check=False)

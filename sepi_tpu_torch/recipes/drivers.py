@@ -86,7 +86,7 @@ def _metrics_logger(workdir: str, mesh) -> Optional[MetricsLogger]:
     """The run's metrics stream; with a mesh, the primary's alone."""
     from ..parallel.multihost import is_primary
 
-    return MetricsLogger(f"{workdir}/metrics.jsonl") if mesh is None or is_primary() else None
+    return MetricsLogger(f"{workdir}/metrics.jsonl") if mesh is None or is_primary(mesh) else None
 
 
 @dataclasses.dataclass
@@ -195,7 +195,7 @@ def _finish(
     from ..parallel.multihost import is_primary
 
     stages = stages or _Stages(torch.device("cpu"))
-    if mesh is not None and not is_primary():
+    if mesh is not None and not is_primary(mesh):
         workdir = None  # the primary writes the files
     if workdir:
         save_embeddings(utt_embeddings, workdir)

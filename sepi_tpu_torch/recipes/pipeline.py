@@ -277,7 +277,7 @@ def run_checkpointed(trainer, it, num_steps: int, train_cfg: TrainConfig,
         with profile(trace_dir, enabled=trace_dir is not None):
             state = trainer.run(it, num_steps=run_for)
         remaining -= run_for
-        if mesh is None or is_primary():
+        if mesh is None or is_primary(mesh):
             save_checkpoint(state, checkpoint_dir, num_steps - remaining,
                             keep_every=train_cfg.keep_checkpoint_every * train_cfg.checkpoint_every)
         barrier(mesh)

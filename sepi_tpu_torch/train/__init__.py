@@ -4,16 +4,17 @@ from .optim import build_optimizer, dropout_schedule, lr_schedule, subtree_lr_fa
 from .trainer import (
     Trainer,
     TrainState,
+    am_eval_step,
+    am_train_step,
     create_train_state,
     finalize_batch_stats,
     make_am_step,
     make_eval_step,
     make_superstep,
     make_xvec_step,
+    xvec_eval_step,
+    xvec_train_step,
 )
-
-xvec_train_step = make_xvec_step
-xvec_eval_step = make_eval_step
 
 __all__ = [
     "lr_schedule",
@@ -23,7 +24,9 @@ __all__ = [
     "TrainState",
     "create_train_state",
     "xvec_train_step",
+    "am_train_step",
     "xvec_eval_step",
+    "am_eval_step",
     "graft_subtree",
     "make_superstep",
     "Trainer",

@@ -83,14 +83,14 @@ def create_train_state(model: torch.nn.Module, tx: OptimizerChain, seed: int,
                        device: torch.device, mesh=None) -> TrainState:
     """Initialise ``model`` from ``seed``, move it to ``device`` and make
     the optimizer state.  (The reference also takes a sample batch to
-    trace the model; torch needs none.)  With a ``mesh``, every rank then
-    takes the primary's parameters, buffers and optimizer state, as DDP
-    does, so ranks start equal whatever seed each was given."""
+    trace the model; torch needs none.)  With a ``mesh``, every rank of it
+    then takes the mesh's first rank's parameters, buffers and optimizer
+    state, as DDP does, so ranks start equal whatever seed each was given."""
     init_weights(model, seed)
     state = TrainState(model.to(device), {}, 0)
     state.opt_state = tx.init(state.params())
     if mesh is not None:
-        broadcast_state(_state_tensors(state))
+        broadcast_state(_state_tensors(state), mesh)
     return state
 
 
@@ -194,10 +194,12 @@ def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=
     return sstep
 
 
-def make_eval_step(task_kwargs: Optional[Dict] = None, mesh=None):
+def make_eval_step(task_kwargs: Optional[Dict] = None, mesh=None, frame_level: bool = False):
     """Held-out objective: ``ev(state, feats, labels)`` -> {objf,
     accuracy} as device scalars, in eval mode (running statistics).
-    Labels are (B,) speaker labels or (B, L) frame labels.  With a
+    Labels are (B,) speaker labels or (B, L) frame labels, whatever
+    ``frame_level`` says (the reference's keyword, which its step does not
+    read either).  With a
     ``mesh`` every rank scores the whole batch and the values are averaged
     over the data axis, so every rank reads the same numbers."""
     kw = dict(task_kwargs or {})

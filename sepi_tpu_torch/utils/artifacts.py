@@ -82,7 +82,7 @@ class ArtifactCache:
         from ..parallel.multihost import barrier, is_primary
 
         barrier(self.mesh)
-        return not have and is_primary()
+        return not have and is_primary(self.mesh)
 
     def _done(self) -> None:
         from ..parallel.multihost import barrier

@@ -6,6 +6,7 @@ with the checked-in golden vectors at the tolerance of
 tests/test_frontend_golden.py.
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -115,13 +116,101 @@ def test_single_utterance_and_seed_gating():
     assert not np.array_equal(fd.numpy(), f0.numpy())
 
 
+# configs outside the fused MFCC's gate, and one inside it, for the stepwise
+# route; each runs undithered and with seeded dither
+STEPWISE = {
+    "no_raw_energy": dict(raw_energy=False),
+    "shift_9125": dict(frame_shift_ms=9.125),
+    "shift_over_length": dict(frame_length_ms=8.0, frame_shift_ms=10.0),
+    "no_energy": dict(use_energy=False),
+}
+STEP_TOL = 1e-3
+
+
+def _stepwise_pair(kw, dither, seed, mode="slices"):
+    """(port features, reference features) of the reference's stepwise
+    route, `FeatureExtractor(cfg, spectral_mode="slices")`, on the same
+    inputs; the dithered reference takes the same per-utterance seeds."""
+    jc = jcfg.FrontendConfig(dither=dither, **kw)
+    tc = tcfg.FrontendConfig(dither=dither, **kw)
+    rng = np.random.default_rng(seed)
+    n = 2 * 8000 + 321
+    samples = (rng.normal(size=(3, n)) * 2000).astype(np.float32)
+    lengths = np.array([n, int(0.55 * n), 400], np.int32)
+    seeds = np.array([11, -5, 2**30 + 7], np.int32) if dither else None
+    ref, mref = jf.FeatureExtractor(jc, spectral_mode="slices").mfcc(samples, lengths,
+                                                                     utt_seeds=seeds)
+    got, mask = tf.FeatureExtractor(tc, device="cpu", spectral_mode=mode).mfcc(
+        samples, lengths, utt_seeds=seeds)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mref))
+    return got.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("dither", [0.0, 1.0], ids=["plain", "dithered"])
+@pytest.mark.parametrize("case", sorted(STEPWISE))
+def test_stepwise_mfcc_matches_reference(case, dither):
+    got, ref = _stepwise_pair(STEPWISE[case], dither, len(case))
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    err = np.abs(got - ref).max()
+    assert err <= STEP_TOL, err
+
+
 def test_unsupported_config_raises():
-    """A config outside the MFCC kernel's gate raises in `mfcc`; the
-    filterbank, which no kernel computes, takes it."""
-    fe = tf.FeatureExtractor(tcfg.FrontendConfig(raw_energy=False), device="cpu")
+    """Configs outside the MFCC kernel's gate take the reference's stepwise
+    route under the default mode ("auto"): both held against the
+    reference's `spectral_mode="slices"` features, undithered and dithered.
+    (Before the stepwise route was ported, `mfcc` raised for them.)"""
     x = np.ones(4000, np.float32)
-    with pytest.raises(ValueError, match="gate"):
-        fe.mfcc(x)
-    assert fe.fbank(x)[0].shape == (50, 23)
-    with pytest.raises(ValueError, match="gate"):
-        tf.FeatureExtractor(tcfg.FrontendConfig(frame_shift_ms=9.125), device="cpu").mfcc(x)
+    for kw, frames in ((dict(raw_energy=False), 50), (dict(frame_shift_ms=9.125), 55)):
+        fe = tf.FeatureExtractor(tcfg.FrontendConfig(**kw), device="cpu")
+        assert not fe.fused
+        assert fe.mfcc(x)[0].shape == (frames, 23)
+        assert fe.fbank(x)[0].shape == (frames, 23)
+        for dither in (0.0, 1.0):
+            got, ref = _stepwise_pair(kw, dither, 7, mode="auto")
+            assert np.abs(got - ref).max() <= STEP_TOL
+
+
+@pytest.mark.parametrize("mode", ["auto", "pallas", "slices", "conv"])
+def test_spectral_modes(mode):
+    """In the gate, "auto" and "pallas" run the fused MFCC (its plain
+    version on the CPU) and "slices"/"conv" the stepwise route; all four
+    agree with the reference's stepwise features on an undithered config."""
+    tc = tcfg.FrontendConfig(dither=0.0)
+    fe = tf.FeatureExtractor(tc, device="cpu", spectral_mode=mode)
+    assert fe.fused == (mode in ("auto", "pallas"))
+    got, ref = _stepwise_pair({}, 0.0, 5, mode=mode)
+    assert np.abs(got - ref).max() <= STEP_TOL
+    # outside the gate every mode takes the stepwise route
+    assert not tf.FeatureExtractor(tcfg.FrontendConfig(raw_energy=False), device="cpu",
+                                   spectral_mode=mode).fused
+
+
+def test_unknown_spectral_mode_raises():
+    with pytest.raises(ValueError, match="spectral_mode"):
+        tf.FeatureExtractor(tcfg.FrontendConfig(), device="cpu", spectral_mode="fft")
+
+
+@pytest.mark.parametrize("preset", ["MFCC_SRE_XVECTOR", "MFCC_SNIP_EDGES", "MFCC_ASR"])
+def test_new_presets_match_reference_kernel(preset):
+    """The presets equal the reference's, pass the fused MFCC's gate, and
+    their dithered features through the kernel's plain version hold
+    against the reference kernel in interpret mode."""
+    from sepi_tpu.ops import mfcc_pallas as jm
+    from sepi_tpu_torch.ops import mfcc_cuda as tm
+
+    jc, tc = getattr(jcfg, preset), getattr(tcfg, preset)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tm.supported(tc) and jm.supported(jc)
+    rng = np.random.default_rng(9)
+    n = 8000 + 517
+    samples = (rng.normal(size=(2, n)) * 2000).astype(np.float32)
+    lengths = np.array([n, 3001], np.int32)
+    seeds = np.array([3, 2**29 + 1], np.int32)
+    tmax = int(jfr.num_frames(n, jc))
+    ref, mref = jm.mfcc_fused(jnp.asarray(samples), jnp.asarray(lengths), jc, tmax,
+                              interpret=True, seeds=jnp.asarray(seeds))
+    got, mask = tf.FeatureExtractor(tc, device="cpu").mfcc(samples, lengths, utt_seeds=seeds)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mref))
+    assert got.shape == (2, tmax, tc.num_ceps)
+    assert np.abs(got.numpy() - np.asarray(ref)).max() < 2e-3

@@ -708,3 +708,79 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     for k in a:
         assert torch.equal(a[k], b[k]), k
     _assert_step_close(a, _plain_steps(cuda, batches))
+
+
+PRESETS = ("MFCC_SRE_IVECTOR", "MFCC_SRE_XVECTOR", "MFCC_SNIP_EDGES", "MFCC_HIRES", "MFCC_ASR")
+
+
+def _parity_audio(device):
+    rng = np.random.default_rng(14)
+    n = 3 * 8000
+    x = (rng.normal(size=(4, n)) * 3000).astype(np.float32)
+    lengths = np.array([n, 17600, 8800, 3200], np.int32)
+    x[np.arange(n)[None, :] >= lengths[:, None]] = 0.0
+    seeds = utt_seeds([f"p{i}" for i in range(4)])
+    return torch.tensor(x, device=device), torch.tensor(lengths, device=device), seeds
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_mfcc_presets_launch_the_kernel(cuda, preset):
+    """Every preset lies inside the kernel's gate: under the default mode
+    `FeatureExtractor.mfcc` launches it, within 2e-3 of the plain version."""
+    from sepi_tpu_torch import config as tcfg
+    from sepi_tpu_torch.ops.features import FeatureExtractor
+
+    cfg = getattr(tcfg, preset)
+    x, lengths, seeds = _parity_audio(cuda)
+    before = mfcc_cuda.mfcc_fused.launches
+    got, mask = FeatureExtractor(cfg, cuda).mfcc(x, lengths, utt_seeds=seeds)
+    torch.cuda.synchronize()
+    assert mfcc_cuda.mfcc_fused.launches == before + 1
+    ref, mref = mfcc_cuda.mfcc_fused_reference(x, lengths, cfg, got.shape[1],
+                                               torch.tensor(seeds, device=cuda))
+    assert torch.equal(mask, mref)
+    assert float((got - ref).abs().max()) < 2e-3
+
+
+@pytest.mark.parametrize("kw", [dict(raw_energy=False), dict(frame_shift_ms=9.125),
+                                dict(frame_length_ms=8.0, frame_shift_ms=10.0)],
+                         ids=["no_raw_energy", "shift_9125", "shift_over_length"])
+@pytest.mark.parametrize("dither", [0.0, 1.0])
+def test_stepwise_mfcc_on_the_card_matches_the_cpu(cuda, kw, dither):
+    """A config outside the kernel's gate takes the stepwise route on the
+    card, with no launch, within 1e-3 of the same route on the CPU."""
+    from sepi_tpu_torch.ops.features import FeatureExtractor
+
+    cfg = FrontendConfig(dither=dither, **kw)
+    x, lengths, seeds = _parity_audio(cuda)
+    before = mfcc_cuda.mfcc_fused.launches
+    got, mask = FeatureExtractor(cfg, cuda).mfcc(x, lengths, utt_seeds=seeds)
+    assert mfcc_cuda.mfcc_fused.launches == before
+    want, wmask = FeatureExtractor(cfg, "cpu").mfcc(x.cpu(), lengths.cpu(), utt_seeds=seeds)
+    assert torch.equal(mask.cpu(), wmask)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+
+
+def test_mfcc_kernel_failure_raises(cuda, monkeypatch):
+    """A config inside the gate never leaves the kernel: a failed launch
+    raises instead of running the stepwise route."""
+    from sepi_tpu_torch.ops.features import FeatureExtractor
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("planted launch failure")
+
+    monkeypatch.setattr(mfcc_cuda, "_launch", fail)
+    x, lengths, seeds = _parity_audio(cuda)
+    with pytest.raises(RuntimeError, match="planted"):
+        FeatureExtractor(FrontendConfig(), cuda).mfcc(x, lengths, utt_seeds=seeds)
+
+
+def test_graft_entry_on_the_card_matches_the_cpu(cuda):
+    from sepi_tpu_torch.graft_entry import entry
+
+    fwd, (model, feats) = entry()
+    got = fwd(model, feats)
+    fwd_c, (model_c, feats_c) = entry(device="cpu")
+    want = fwd_c(model_c, feats_c)
+    assert got.device.type == "cuda" and got.shape == (8, 512)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -15,7 +15,10 @@ against the JAX package's sharded functions.  Modes:
 - pad: the GMM and PLDA functions alone (3 ranks: the padding paths);
 - indivisible: a batch the data axis does not divide, in the step, the
   extractor and local_batch_slice;
-- run_v2: a tiny run_v2 with the mesh, counting each rank's file writes.
+- run_v2: a tiny run_v2 with the mesh, counting each rank's file writes;
+- subset: create_train_state, DP steps and an artifact stage on the mesh
+  over ``inputs["devices"]`` (the world when None); a rank outside that
+  mesh records what each helper raised when handed it.
 """
 
 import contextlib
@@ -195,13 +198,54 @@ def mode_run_v2(inp, mesh):
             "primary": is_primary()}
 
 
+def mode_subset(inp, mesh):
+    from sepi_tpu_torch.models import XVector
+    from sepi_tpu_torch.parallel.multihost import barrier
+    from sepi_tpu_torch.train import create_train_state, make_xvec_step
+    from sepi_tpu_torch.utils.artifacts import ArtifactCache
+
+    chain, _ = build_optimizer(OptimizerConfig(preconditioner="none"), 100)
+    cpu = torch.device("cpu")
+    if mesh.get_coordinate() is None:
+        raised = {}
+        for name, fn in {
+            "create_train_state": lambda: create_train_state(XVector(inp["xcfg"]), chain, 7,
+                                                             cpu, mesh=mesh),
+            "step": lambda: make_xvec_step(chain, mesh=mesh),
+            "barrier": lambda: barrier(mesh),
+            "is_primary": lambda: is_primary(mesh),
+            "artifacts": lambda: ArtifactCache(inp["artifacts"], mesh).stage(
+                "params", {}, lambda: {}),
+        }.items():
+            try:
+                fn()
+                raised[name] = None
+            except ValueError as e:
+                raised[name] = str(e)
+        return {"member": False, "raised": raised}
+    # the mesh's first rank seeds 7, the others elsewhere: all start from seed 7
+    seed = 7 if is_primary(mesh) else 100 + RANK
+    st = create_train_state(XVector(inp["xcfg"]), chain, seed, cpu, mesh=mesh)
+    step = make_xvec_step(chain, mesh=mesh)
+    objf = [float(step(st, _t(f), _t(lab), 1.0)["objf"]) for f, lab in inp["batches"]]
+    ran = []
+
+    def write():
+        ran.append(RANK)
+        return _np_state(st.model)
+
+    saved = ArtifactCache(inp["artifacts"], mesh).stage("params", {"steps": len(objf)}, write)
+    return {"member": True, "primary": is_primary(mesh), "objf": objf,
+            "state": _np_state(st.model), "wrote": bool(ran), "saved": saved}
+
+
 def main():
     initialize(f"127.0.0.1:{PORT}", NPROC, RANK, device="cpu",
                timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_mesh()
         with open(os.path.join(WORKDIR, "inputs.pkl"), "rb") as f:
             inp = pickle.load(f)
+        mesh = make_mesh(devices=inp.get("devices"))
         out = globals()[f"mode_{MODE}"](inp, mesh)
         path = os.path.join(WORKDIR, f"rank{RANK}.pkl")
         with open(path + ".tmp", "wb") as f:
