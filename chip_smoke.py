@@ -138,6 +138,17 @@ non-zero:
      graft_entry.entry() (full-size V2, 5000 speakers, 8 x 300 x 23) on the
      card against the CPU within 1e-4 of the embedding's scale, and its
      forward's median ms.  Wall seconds against a 60 s budget.
+ 15. the port's headline measurement, `sepi_tpu_torch.bench.main`, in-process
+     at bench.py's shapes with R = 10 timed runs per measurement: 16 x 100 s
+     of dithered audio through FeatureExtractor.mfcc, VAD, CMVN, select and
+     the full-size V2 (5000 speakers); the bf16 V2 step, its K = 16
+     superstep, the v5 am+xvec pair and its K = 8 superstep; the PLDA trial
+     matrix at 4096 x 4096 x 150.  Its own checks (the MFCC within 2e-3 of the
+     plain version, embeddings finite, every objective finite and every
+     parameter moved, a 256 x 256 block of the trial matrix against float64)
+     raise on a miss; its JSON line, bench.py's keys and the card, is printed
+     on a line of its own, and the MFCC's launches are counted around it.
+     Wall seconds against a 60 s budget.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}, whose count is the one card the
 run used (the script shows its ranks that card alone).  Without a CUDA device the
@@ -182,11 +193,12 @@ def log(msg: str) -> None:
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
+    """The card's name and power limit, as `nvidia-smi` gives them."""
+    import torch
+
+    from sepi_tpu_torch.bench import card_line
+
+    return card_line(torch.device("cuda"))
 
 
 def peaks(name: str):
@@ -3780,6 +3792,45 @@ def phase_parity(env, device="cuda", cfg=None, workdir=None, timed=10):
             "entry_gap": c["gap"], "entry_ms": c["ms"], "wall": wall}
 
 
+P15_BUDGET_S = 60.0  # phase 15's wall, reported against this budget
+P15_REPEATS = 10  # timed runs per measurement
+
+
+def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
+    """Phase 15: `sepi_tpu_torch.bench.main` in-process (it prints its own
+    JSON line), with the MFCC's launches counted from 0 around it.
+    ``shapes`` narrows it for a CPU rehearsal (``device="cpu"``)."""
+    from sepi_tpu_torch import bench
+    from sepi_tpu_torch.ops import mfcc_cuda
+
+    shapes = shapes or bench.Shapes()
+    t0 = time.perf_counter()
+    mfcc_cuda.mfcc_fused.launches = 0
+    line, runs = bench.main(device=device, repeats=repeats, shapes=shapes)
+    launches = mfcc_cuda.mfcc_fused.launches
+    wall = time.perf_counter() - t0
+    # the checked call, the warm-ups and the timed runs, one launch each
+    calls = 1 + shapes.warmup + repeats * shapes.extract_iters
+    if device != "cpu" and launches != calls:
+        raise AssertionError(f"phase 15: {launches} MFCC launches, {calls} extraction calls")
+    ext, tr, pl = runs["extraction"], runs["training"], runs["plda"]
+    where = env["smi"] if env else device
+    log(f"phase 15 bench on {where}: {line['value']} audio-s/s ({ext.timing.median:.3f} ms a "
+        f"{shapes.utts} x {shapes.secs:.0f} s batch), v2 bf16 step "
+        f"{line['extra']['v2_train_ms_per_step']} ms, K={shapes.superstep} superstep "
+        f"{line['extra']['v2_superstep16_ms_per_step']} ms a step, v5 pair "
+        f"{line['extra']['v5_multitask_ms_per_step_pair']} ms, K={shapes.pair_superstep} pair "
+        f"superstep {line['extra']['v5_superstep8_ms_per_step_pair']} ms a pair, PLDA "
+        f"{line['extra']['plda_trials_per_s']:.4e} trials/s ({pl.timing.median:.3f} ms); medians "
+        f"of R={repeats} timed runs (quartiles on stderr); checks: MFCC vs plain "
+        f"{ext.mfcc_err:.3e} (limit {bench.MFCC_TOL}), embeddings {tuple(ext.embeddings.shape)} "
+        f"finite, last objf " + ", ".join(f"{k} {v:.4f}" for k, v in tr.objf.items())
+        + f", trial block vs float64 {pl.block_err:.3e} (limit {bench.PLDA_RTOL}); MFCC "
+        f"launches {launches}; {wall:.1f} s against its {P15_BUDGET_S:.0f} s budget "
+        f"({'within' if wall <= P15_BUDGET_S else 'over'})")
+    return {"launches": launches, "mfcc_err": ext.mfcc_err, "line": line, "wall": wall}
+
+
 def main() -> int:
     # the smoke drives one card: its spawned ranks see that card alone
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -3849,6 +3900,7 @@ def main() -> int:
     cli_run = phase_cli(env, drv["corpus"])
     mesh_run = phase_mesh(env, drv)
     parity = phase_parity(env)
+    bench_run = phase_bench(env)
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -3862,12 +3914,13 @@ def main() -> int:
     mfcc["launches_cli_path"] = cli_run["launches"]["mfcc_fused"]
     mfcc["launches_mesh_path"] = mesh_run["launches"]
     mfcc["launches_parity_path"] = parity["launches"]
+    mfcc["launches_bench_path"] = bench_run["launches"]
     mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
         {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
                           for c, (n, e) in dnn["mfcc"].items()}}.items())}
     mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"],
                                bf16["mfcc_err"], cli_run["mfcc_err"], mesh_run["mfcc_err"],
-                               parity["mfcc_err"]]
+                               parity["mfcc_err"], bench_run["mfcc_err"]]
                               + [e for _, e in v1["mfcc"].values()]
                               + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]

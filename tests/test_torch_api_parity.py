@@ -10,6 +10,9 @@ or a state_dict, optax transformations that became the port's in-place
 chain.  A stale entry (one that no longer differs) fails too, so the next
 comparison stays mechanical.
 
+The repository's top-level programs are compared the same way:
+`__graft_entry__.py`'s entry points and `bench.py`'s stages and `main`
+against the port's `graft_entry.py`, `parallel/dryrun.py` and `bench.py`.
 Below the walk: the ``batched=`` keyword of the aligners (both values give
 the reference's alignments) and `graft_entry.entry` against
 `__graft_entry__.entry` through `bridge.py`.
@@ -359,6 +362,19 @@ def graft_entry_differences(ref: Package, port: Package) -> List[str]:
     return out + [f"__graft_entry__.py:{n}" for n in sorted(missing)]
 
 
+def bench_differences(ref: Module, port: Package) -> List[str]:
+    """The public functions of the repository's `bench.py` (``ref``) and
+    their keywords without a counterpart in the port's `bench.py`."""
+    out = []
+    for name in sorted(public_names("bench.py", ref)):
+        p = port.resolve("bench.py", name)
+        if not isinstance(p, ast.FunctionDef) or name not in ref.defs:
+            out.append(f"bench.py:{name}")
+        else:
+            out += [f"bench.py:{name}({k})" for k in _missing_keywords(ref.defs[name], p)]
+    return out
+
+
 REF_PKG, PORT_PKG = Package(REF), Package(PORT)
 REF_MODULES = sorted(r for r in REF_PKG.modules if r not in NOT_PORTED)
 
@@ -387,6 +403,21 @@ def test_module_names_and_keywords_have_counterparts(rel):
 
 def test_graft_entry_has_counterparts():
     assert graft_entry_differences(REF_PKG, PORT_PKG) == []
+
+
+def test_bench_has_counterparts():
+    """`bench.py`'s stages and `main` in `sepi_tpu_torch/bench.py`, every
+    keyword kept (the port adds ``device=``, ``shapes=`` and ``repeats=``);
+    a planted gap in a synthetic port is reported."""
+    ref = parse_module((REPO / "bench.py").read_text())
+    assert public_names("bench.py", ref) == {"bench_extraction", "bench_training",
+                                             "bench_plda_scoring", "main"}
+    assert bench_differences(ref, PORT_PKG) == []
+    short = Package(Path("port"), {"bench.py": "def bench_extraction(device='cuda'):\n"
+                                               "    pass\nmain = print\n"})
+    assert bench_differences(ref, short) == [
+        "bench.py:bench_extraction(rng)", "bench.py:bench_plda_scoring",
+        "bench.py:bench_training", "bench.py:main"]
 
 
 def test_allow_list_is_current():

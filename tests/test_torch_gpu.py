@@ -784,3 +784,45 @@ def test_graft_entry_on_the_card_matches_the_cpu(cuda):
     want = fwd_c(model_c, feats_c)
     assert got.device.type == "cuda" and got.shape == (8, 512)
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# the bench at full widths, on small batches: every check, and the kernel's launches
+GPU_BENCH = dict(utts=2, secs=10.0, chunks=8, superstep=2, am_chunks=16, pair_superstep=2,
+                 plda_models=512, plda_tests=512, extract_iters=2, step_iters=2,
+                 superstep_iters=1, plda_iters=2, warmup=1)
+
+
+def test_bench_checks_hold_on_the_card(cuda):
+    """`bench.main` on the card: its checks hold (the MFCC kernel against
+    its plain version, embeddings, objectives and moved parameters, the
+    trial block against float64), each extraction call launched the
+    kernel once, and the line carries the card."""
+    from sepi_tpu_torch import bench
+
+    shapes = bench.Shapes(**GPU_BENCH)
+    before = mfcc_cuda.mfcc_fused.launches
+    line, runs = bench.main(device="cuda", repeats=2, shapes=shapes)
+    assert mfcc_cuda.mfcc_fused.launches - before == 1 + shapes.warmup + 2 * shapes.extract_iters
+    assert runs["extraction"].embeddings.device.type == "cuda"
+    assert runs["extraction"].mfcc_err <= bench.MFCC_TOL
+    assert runs["plda"].block_err <= bench.PLDA_RTOL
+    assert line["device"] not in ("", "cpu") and "error" not in line
+    values = [line["value"], line["vs_baseline"], *line["extra"].values()]
+    assert len(values) == 9 and all(v is not None and np.isfinite(v) and v > 0 for v in values)
+
+
+def test_bench_check_catches_a_planted_kernel_fault(cuda, monkeypatch):
+    """The MFCC kernel's output shifted by 0.01 after each launch: the
+    extraction stage's check raises instead of reporting a number."""
+    from sepi_tpu_torch import bench
+
+    launch = mfcc_cuda._launch
+
+    def faulty(samples, lengths, seeds, cfg, max_frames, c, out, mask):
+        launch(samples, lengths, seeds, cfg, max_frames, c, out, mask)
+        out.add_(0.01)
+
+    monkeypatch.setattr(mfcc_cuda, "_launch", faulty)
+    with pytest.raises(bench.BenchCheckFailed, match="MFCC"):
+        bench.bench_extraction(np.random.default_rng(0), device="cuda",
+                               shapes=bench.Shapes(**GPU_BENCH), repeats=1)
