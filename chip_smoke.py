@@ -148,7 +148,27 @@ non-zero:
      parameter moved, a 256 x 256 block of the trial matrix against float64)
      raise on a miss; its JSON line, bench.py's keys and the card, is printed
      on a line of its own, and the MFCC's launches are counted around it.
-     Wall seconds against a 60 s budget.
+     Wall seconds against a 60 s budget.  The training steps run as captured
+     CUDA graphs (the replay count is held > 0); each one's eager median
+     (capture=False) is printed beside it.
+ 16. the captured training step (`train.graphs`), run before phase 15: a.
+     20 captured steps against 20 eager ones (capture=False) from the same
+     state under cudnn.deterministic, every parameter, buffer, optimizer
+     tensor and metric torch.equal, for the fp32 V2 with Muon and with
+     momentum SGD, the bf16 V2 and the bf16 v5 am+xvec pair at the bench's
+     shapes and widths, and the Trainer's path (staged batches of two
+     chunk lengths, K = 4 supersteps, loss weights, held-out evaluation)
+     with the factories' default against capture=False; b. the K = 16
+     superstep (two replays) against 32
+     eager steps, bit-equal; c. a new capture after clone() and after
+     load_checkpoint, each bit-equal to eager, and a planted stale replay
+     (the first graph run after opt_state is replaced) that must differ;
+     d. determinism off, 3 momentum-SGD steps within TRAJ_TOL; e. the
+     device idle share, device ops and host launch calls per call of the
+     eager and the captured bf16 V2 step and v5 pair (torch.profiler);
+     the captures, replays, live graphs and peak memory.  Wall seconds
+     against a 60 s budget.  Phases 9 and 11c print and hold their replay
+     counts (> 0) and peak memory: the drivers train through graphs.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}, whose count is the one card the
 run used (the script shows its ranks that card alone).  Without a CUDA device the
@@ -1582,6 +1602,26 @@ class _Tee:
         self.out.flush()
 
 
+def _graph_counts(device, what, problems) -> dict:
+    """The captured steps' counts since `graphs.reset_counts()`, the graphs
+    live now and the peak memory since the last reset; a path on the card
+    that replayed no graph is a problem."""
+    import torch
+
+    from sepi_tpu_torch.train import graphs
+
+    out = dict(graphs.counts, live=graphs.live_graphs(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if device != "cpu" else 0.0)
+    if device != "cpu" and out["replays"] <= 0:
+        problems.append(f"{what} replayed no captured step: {out}")
+    return out
+
+
+def _fmt_graphs(c) -> str:
+    return (f"captured steps: {c['captures']} captures, {c['replays']} replays, {c['live']} "
+            f"graphs live after, peak memory {c['peak_gb']:.2f} GB")
+
+
 def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, adapt=P9_ADAPT,
                       v2_steps=P9_V2_STEPS, num_steps=P9_STEPS, am_steps=P9_AM_STEPS,
                       train_cfg=None, configs=None, align_cfg=None, workdir=None,
@@ -1600,6 +1640,7 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     import shutil
 
     import numpy as np
+    import torch
 
     from sepi_tpu_torch.align import mono, viterbi_cuda
     from sepi_tpu_torch.config import AlignConfig, BackendConfig, TrainConfig
@@ -1608,6 +1649,7 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     from sepi_tpu_torch.models import lecun_normal_init
     from sepi_tpu_torch.ops import mfcc_cuda
     from sepi_tpu_torch.recipes import drivers, pipeline
+    from sepi_tpu_torch.train import graphs
     from sepi_tpu_torch.utils import kaldi_models, read_scp, read_vector
 
     train_cfg = train_cfg or TrainConfig()
@@ -1676,6 +1718,9 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     try:
         mfcc_cuda.mfcc_fused.launches = 0
         viterbi_cuda.viterbi_batch.launches = 0
+        graphs.reset_counts()
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
         with contextlib.redirect_stdout(tee), _MfccCapture() as cap:
             for current in ("v2", "v3", "v4", "v5"):
                 calls[current] = {}
@@ -1695,6 +1740,7 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     out_text = "".join(tee.lines)
 
     problems = []
+    graph_counts = _graph_counts(device, "the driver path", problems)
     if device != "cpu" and min(launches.values()) <= 0:
         problems.append(f"the driver path did not launch every kernel: {launches}")
     if out_text.count("[s5_feats_ali] running") != 1 or out_text.count(
@@ -1784,6 +1830,7 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
         f"v3/v4/v5 {num_steps} steps (AM {am_steps}), "
         f"{'narrow widths' if configs else 'default widths'} and {train_cfg}, s5 ({align_cfg}) "
         f"run once in v3 and loaded from its stage cache by v4/v5; {systems}; launches {launches}; "
+        f"{_fmt_graphs(graph_counts)}; "
         f"mfcc on the phase's {n_mfcc} batches {mfcc_shapes} max abs err {mfcc_err:.3e} <= {TOL}; "
         f"viterbi on the largest batch of each (T, S, skip) {viterbi_shapes}: backpointers "
         f"equal, live delta max abs err {viterbi_err:.3e} <= {VITERBI_ATOL}; reverberate on "
@@ -1801,7 +1848,8 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     if problems:
         raise AssertionError("phase 9: " + "; ".join(problems))
     return {"launches": launches, "mfcc_err": mfcc_err, "viterbi_err": viterbi_err,
-            "viterbi_shapes": viterbi_shapes, "eer": {k: r.eer for k, r in res.items()},
+            "viterbi_shapes": viterbi_shapes, "graphs": graph_counts,
+            "eer": {k: r.eer for k, r in res.items()},
             "eer_initial": {k: r.eer for k, r in initial.items()},
             "corpus": corpus, "v2_model": calls["v2"]["extract"][0][0],
             "v2_backend": calls["v2"]["backend"],
@@ -2378,6 +2426,7 @@ def phase_bf16_driver(env, drv, device="cuda", v2_steps=P9_V2_STEPS, train_cfg=N
     from sepi_tpu_torch.models import compute_dtype
     from sepi_tpu_torch.ops import mfcc_cuda
     from sepi_tpu_torch.recipes import drivers, pipeline
+    from sepi_tpu_torch.train import graphs
 
     corpus = drv["corpus"]
     trn, evl, adp = corpus["train"], corpus["eval"], corpus["adapt"]
@@ -2401,6 +2450,9 @@ def phase_bf16_driver(env, drv, device="cuda", v2_steps=P9_V2_STEPS, train_cfg=N
     pipeline.extract_and_score = cap_x
     try:
         mfcc_cuda.mfcc_fused.launches = 0
+        graphs.reset_counts()
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
         with contextlib.redirect_stdout(text), _MfccCapture() as cap:
             t0 = time.perf_counter()
             res = drivers.run_v2(
@@ -2418,6 +2470,7 @@ def phase_bf16_driver(env, drv, device="cuda", v2_steps=P9_V2_STEPS, train_cfg=N
         shutil.rmtree(os.path.dirname(wd), ignore_errors=True)
         shutil.rmtree(v3["stage"], ignore_errors=True)
     out = text.getvalue()
+    graph_counts = _graph_counts(device, "the bf16 driver path", problems)
     if out.count("[s5_feats_ali] cached") != 1 or "[s5_feats_ali] running" in out:
         problems.append("bf16 run_v3 did not load phase 9's s5 stage from its cache")
     if device != "cpu" and launches <= 0:
@@ -2447,11 +2500,12 @@ def phase_bf16_driver(env, drv, device="cuda", v2_steps=P9_V2_STEPS, train_cfg=N
         f"{r3.min_dcf08:.4f} (phase 9 float32 {eer3_32:.3f}%, initial weights {eer3_0:.3f}%) "
         f"in {wall3:.2f} s (" + ", ".join(f"{k} {v:.2f}" for k, v in res3.seconds.items())
         + f"); extraction dtypes {sorted({str(d) for d in dtypes})}; mfcc_fused launches "
-        f"{launches}, {n_mfcc} batches max abs err {mfcc_err:.3e} <= {TOL}")
+        f"{launches}, {n_mfcc} batches max abs err {mfcc_err:.3e} <= {TOL}; "
+        f"{_fmt_graphs(graph_counts)}")
     if problems:
         raise AssertionError("phase 11c: " + "; ".join(problems))
     return {"launches": launches, "mfcc_err": mfcc_err, "eer": r.eer, "eer_v3": r3.eer,
-            "wall": wall, "wall_v3": wall3}
+            "wall": wall, "wall_v3": wall3, "graphs": graph_counts}
 
 
 def phase_device_backend(env, drv, device="cuda", dims=(PLDA_DIM, PLDA_MODELS, PLDA_TESTS),
@@ -3792,6 +3846,370 @@ def phase_parity(env, device="cuda", cfg=None, workdir=None, timed=10):
             "entry_gap": c["gap"], "entry_ms": c["ms"], "wall": wall}
 
 
+P16_BUDGET_S = 60.0  # phase 16's wall, reported against this budget
+P16_STEPS = 20  # 16a: steps of each trajectory
+P16_PROFILED = 5  # 16e: calls in each profiler window
+
+
+def _p16_equal(got, want) -> list:
+    """The names of the tensors that are not `torch.equal` between two
+    lists of (name, tensor)."""
+    import torch
+
+    return [n for (n, a), (_, b) in zip(got, want) if not torch.equal(a, b)]
+
+
+def _p16_tensors(state) -> list:
+    """(name, tensor) of every tensor a step reads or writes."""
+    from sepi_tpu_torch.train.graphs import state_tensors
+
+    names = ([f"param {n}" for n, _ in state.model.named_parameters()]
+             + [f"buffer {n}" for n, _ in state.model.named_buffers()])
+    tensors = list(state_tensors(state))
+    names += [f"opt {i}" for i in range(len(tensors) - len(names))]
+    return list(zip(names, tensors))
+
+
+def _p16_metrics(ms) -> list:
+    return [(f"{i} {k}", v) for i, m in enumerate(ms) for k, v in m.items()]
+
+
+def _p16_batches(device, n, b, t, classes, feat_dim=23, frames=None, seed=16):
+    """``n`` seeded batches: feats (b, t, feat_dim) and int32 labels (b,)
+    or (b, frames)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (b,) if frames is None else (b, frames)
+    return [(torch.randn((b, t, feat_dim), generator=g, device=device),
+             torch.randint(0, classes, shape, generator=g, device=device, dtype=torch.int32))
+            for _ in range(n)]
+
+
+def _p16_configs(device, v2_cfg, shapes, steps):
+    """16a's configurations: (label, chain, initial state, [(task kwargs,
+    batches)]), the entries stepped in turn; the bench's v5 pair last."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import CombinedCVector, lecun_normal_init
+    from sepi_tpu_torch.train import TrainState, build_optimizer
+
+    out = []
+    v2 = _p16_batches(device, steps, shapes.chunks, shapes.chunk_frames, v2_cfg.num_speakers,
+                      v2_cfg.feat_dim)
+    for label, opt, dtype in (("fp32 V2 muon", OptimizerConfig(), "float32"),
+                              ("fp32 V2 momentum-SGD", OptimizerConfig(preconditioner="none"),
+                               "float32"),
+                              ("bf16 V2 muon", OptimizerConfig(), "bfloat16")):
+        chain, state = _train_state(v2_cfg, device, opt, dtype=dtype)
+        out.append((label, chain, state, [({}, v2)]))
+    # two chunk lengths in turn through one step function: two graphs, one pool
+    longer = _p16_batches(device, steps, shapes.chunks, shapes.chunk_frames * 3 // 2,
+                          v2_cfg.num_speakers, v2_cfg.feat_dim, seed=20)
+    chain, state = _train_state(v2_cfg, device, OptimizerConfig(), dtype="bfloat16")
+    out.append((f"bf16 V2 muon, {shapes.chunk_frames} and {shapes.chunk_frames * 3 // 2} "
+                f"frames in turn", chain, state, [({}, v2), ({}, longer)]))
+    c = shapes.combined  # the bench's v5 state (bench_training)
+    model = CombinedCVector(c, dtype="bfloat16")
+    lecun_normal_init(model, 2)
+    model.to(device)
+    chain, _ = build_optimizer(OptimizerConfig(), 1000)
+    state = TrainState(model, chain.init(dict(model.named_parameters())))
+    al, ar = c.am_context
+    am = _p16_batches(device, steps, shapes.am_chunks, shapes.am_frames + al + ar,
+                      c.num_senones, c.feat_dim, frames=shapes.am_frames, seed=17)
+    xv = _p16_batches(device, steps, shapes.chunks, shapes.chunk_frames, c.num_speakers,
+                      c.feat_dim, seed=18)
+    out.append(("bf16 v5 am+xvec pair", chain, state, [({"task": "am"}, am),
+                                                        ({"task": "xvec"}, xv)]))
+    return out
+
+
+def _p16_trajectory(chain, state, tasks, steps):
+    """``steps`` captured and eager steps (each task in turn) from clones
+    of ``state``: (captured state, eager state, mismatched names, graphs)."""
+    from sepi_tpu_torch.train import make_xvec_step
+
+    sg, se = state.clone(), state.clone()
+    fns = {}  # one step function per task: its shapes' graphs share one pool
+    for kw, _ in tasks:
+        key = tuple(sorted(kw.items()))
+        if key not in fns:
+            fns[key] = (make_xvec_step(chain, kw), make_xvec_step(chain, kw, capture=False))
+    mg, me = [], []
+    for i in range(steps):
+        for kw, batches in tasks:
+            g, e = fns[tuple(sorted(kw.items()))]
+            f, lab = batches[i % len(batches)]
+            mg.append(g(sg, f, lab, 1.0))
+            me.append(e(se, f, lab, 1.0))
+    bad = _p16_equal(_p16_tensors(sg), _p16_tensors(se)) + _p16_equal(_p16_metrics(mg),
+                                                                       _p16_metrics(me))
+    if sg.step != se.step or sg.opt_state["count"] != se.opt_state["count"]:
+        bad.append(f"counts {sg.step}/{sg.opt_state['count']} vs {se.step}/"
+                   f"{se.opt_state['count']}")
+    return sg, se, bad, sum(len(g.graphs) for g, _ in fns.values())
+
+
+def _p16_stale(chain, state, batches, root):
+    """16c: recapture after `clone()` and `load_checkpoint`, each against
+    the eager step; the keyed step after ``opt_state`` is replaced; then the
+    planted stale replay (the first graph run against the replaced
+    ``opt_state``), which must differ from the eager step."""
+    from sepi_tpu_torch.train import load_checkpoint, make_xvec_step, save_checkpoint
+    from sepi_tpu_torch.train.graphs import state_tensors
+
+    step, eager = make_xvec_step(chain), make_xvec_step(chain, capture=False)
+    a = state.clone()
+    (f0, l0), (f1, l1) = batches[0], batches[1]
+    for i in range(3):
+        step(a, *batches[i % len(batches)], 1.0)
+    first = next(iter(step.graphs.values()))
+    save_checkpoint(a, root, a.step)
+    for i in range(3):
+        step(a, *batches[(i + 3) % len(batches)], 1.0)
+    out, bad, held = {}, [], []
+    for label, make in (("clone", a.clone), ("load_checkpoint", lambda: load_checkpoint(a, root))):
+        s, r = make(), make()
+        held += [s, r]  # alive: a freed state's addresses could be taken by the next one
+        before = len(step.graphs)
+        ms, mr = step(s, f1, l1, 1.0), eager(r, f1, l1, 1.0)
+        diff = _p16_equal(_p16_tensors(s), _p16_tensors(r)) + _p16_equal(
+            _p16_metrics([ms]), _p16_metrics([mr]))
+        out[label] = "equal" if not diff else f"{len(diff)} differ"
+        bad += [f"{label}: {d}" for d in diff]
+        if len(step.graphs) != before + 1:
+            bad.append(f"{label}: no new capture ({before} -> {len(step.graphs)} graphs)")
+    # a's optimizer state replaced by the checkpoint's, its parameters loaded in place
+    old_opt = a.opt_state  # kept alive: the stale graph still writes there
+    loaded = load_checkpoint(a, root)
+    a.opt_state = loaded.opt_state
+    a.model.load_state_dict(loaded.model.state_dict())
+    a.step = loaded.step
+    ref = a.clone()
+    eager(ref, f0, l0, 1.0)
+    snapshot = [t.clone() for t in state_tensors(a)]
+    count0 = a.opt_state["count"]
+    step(a, f0, l0, 1.0)  # the keyed path: a new capture
+    diff = _p16_equal(_p16_tensors(a), _p16_tensors(ref))
+    out["replaced opt_state"] = "equal" if not diff else f"{len(diff)} differ"
+    bad += [f"replaced opt_state: {d}" for d in diff]
+    for t, s in zip(state_tensors(a), snapshot):
+        t.copy_(s)
+    a.step, a.opt_state["count"] = loaded.step, count0
+    first.run(a, f0, l0, 1.0)  # the planted fault: the old graph, stale optimizer state
+    stale = _p16_equal(_p16_tensors(a), _p16_tensors(ref))
+    out["planted stale replay"] = f"{len(stale)} of {len(snapshot)} tensors differ"
+    if not stale:
+        bad.append("the planted stale replay matched the eager step: the check cannot fail")
+    del old_opt
+    return out, bad
+
+
+def _p16_trainer(chain, state, shapes, v2_cfg, k=4):
+    """The Trainer's path, captured (the factories' default) against
+    ``capture=False`` from the same state: staged batches of two chunk
+    lengths, runs of K same-shape batches as supersteps and the rest as
+    single steps, loss weights, held-out evaluation in between.  Returns
+    the names of the tensors and log records that differ."""
+    import numpy as np
+
+    from sepi_tpu_torch.data import ChunkBatch
+    from sepi_tpu_torch.train import Trainer, make_eval_step, make_superstep, make_xvec_step
+
+    rng = np.random.default_rng(21)
+    b, t = shapes.chunks, shapes.chunk_frames
+
+    def batch(frames):
+        return ChunkBatch(rng.normal(size=(b, frames, v2_cfg.feat_dim)).astype(np.float32),
+                          rng.integers(0, v2_cfg.num_speakers, size=b).astype(np.int32), frames)
+
+    lengths = [t] * k + [t * 3 // 2] * k + [t] * (k - 1) + [t * 3 // 2] * 2
+    stream = [(batch(n), 0.5 if i % 3 == 0 else 1.0) for i, n in enumerate(lengths)]
+    valid = [batch(t)]
+    runs = []
+    for capture in (None, False):
+        st = state.clone()
+        trainer = Trainer(steps={"xvec": make_xvec_step(chain, capture=capture)}, state=st,
+                          log_every=3, valid_batches=valid, eval_steps={"xvec": make_eval_step()},
+                          eval_every=5, supersteps={"xvec": make_superstep(chain, capture=capture)},
+                          steps_per_dispatch=k)
+        trainer.run(iter(stream), num_steps=len(stream))
+        runs.append((st, trainer.history))
+    (sg, hg), (se, he) = runs
+    bad = _p16_equal(_p16_tensors(sg), _p16_tensors(se))
+    if hg != he:
+        bad.append(f"log records {hg[:2]} vs {he[:2]}")
+    return bad, len(stream)
+
+
+def _launch_profile(fn, n=P16_PROFILED):
+    """torch.profiler over ``n`` calls of ``fn`` after a warm-up call:
+    device busy and wall ms, device ops and host launch/copy calls, each
+    per call."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in device_ops) / 1e3
+    api = collections.Counter(e.name for e in events
+                              if e.device_type == torch.autograd.DeviceType.CPU
+                              and e.name.startswith("cu") and any(
+                                  w in e.name for w in ("Launch", "Memcpy", "Memset")))
+    return {"busy_ms": busy_ms / n, "wall_ms": wall_ms / n, "idle": 1 - busy_ms / wall_ms,
+            "device_ops": len(device_ops) / n, "host_calls": sum(api.values()) / n,
+            "graph_launches": sum(v for k, v in api.items() if "Graph" in k) / n}
+
+
+def phase_graphs(env, device="cuda", v2_cfg=None, shapes=None, steps=P16_STEPS,
+                 workdir=None):
+    """Phase 16: the captured CE step and superstep against the eager step
+    (``capture=False``).  a. trajectories of ``steps`` steps bit-equal
+    under deterministic cuDNN: the fp32 V2 with Muon and with momentum
+    SGD, the bf16 V2 (also at two chunk lengths in turn) and the bf16 v5
+    am+xvec pair, at the bench's shapes, and the Trainer's path (staging,
+    supersteps, weights, evaluation);
+    b. the K-step superstep (two replays) against 2K eager steps; c.
+    recapture after `clone()` and `load_checkpoint`, and a planted stale
+    replay that must differ; d. determinism off, 3 momentum-SGD steps
+    within TRAJ_TOL; e. the device idle share and launches per call of the
+    eager and the captured bf16 V2 step and v5 pair (torch.profiler, on
+    the card).  ``v2_cfg`` and ``shapes`` narrow it for a CPU rehearsal."""
+    import shutil
+
+    import torch
+
+    from sepi_tpu_torch import bench
+    from sepi_tpu_torch.device import fp32_math
+    from sepi_tpu_torch.models import V2_XVECTOR
+    from sepi_tpu_torch.train import graphs, make_superstep, make_xvec_step
+
+    shapes = shapes or bench.Shapes()
+    v2_cfg = v2_cfg or dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    root = workdir or os.path.join(ROOT, "build", "smoke_graphs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0, wall, problems, lines = time.perf_counter(), {}, [], []
+    graphs.reset_counts()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    with fp32_math():
+        cudnn.deterministic = True
+        try:
+            configs = _p16_configs(device, v2_cfg, shapes, steps)
+            for label, chain, state, tasks in configs:
+                _, _, bad, n = _p16_trajectory(chain, state, tasks, steps)
+                lines.append(f"{label} {'equal' if not bad else 'DIFFERS ' + str(bad[:4])} "
+                             f"({n} graphs)")
+                problems += [f"16a {label}: {b}" for b in bad]
+            _, chain, state, _ = configs[0]  # the fp32 V2 with Muon
+            bad_t, n_t = _p16_trainer(chain, state, shapes, v2_cfg)
+            lines.append(f"the Trainer ({n_t} staged batches of two lengths, K=4 supersteps, "
+                         f"weights, held-out evaluation) "
+                         f"{'equal' if not bad_t else 'DIFFERS ' + str(bad_t[:4])}")
+            problems += [f"16a Trainer: {b}" for b in bad_t]
+            wall["16a"] = time.perf_counter() - t0
+
+            t = time.perf_counter()
+            _, chain, state, _ = configs[2]  # the bf16 V2
+            k = shapes.superstep
+            batches = _p16_batches(device, 2 * k, shapes.chunks, shapes.chunk_frames,
+                                   v2_cfg.num_speakers, v2_cfg.feat_dim, seed=19)
+            sg, se = state.clone(), state.clone()
+            sstep, eager = make_superstep(chain), make_xvec_step(chain, capture=False)
+            ones = torch.ones(k, device=device)
+            mg, me = [], []
+            for half in (batches[:k], batches[k:]):
+                f = torch.stack([b[0] for b in half])
+                lab = torch.stack([b[1] for b in half])
+                m = sstep(sg, f, lab, ones)
+                mg += [{n: v[i] for n, v in m.items()} for i in range(k)]
+                me += [eager(se, f[i], lab[i], ones[i]) for i in range(k)]
+            bad_b = _p16_equal(_p16_tensors(sg), _p16_tensors(se)) + _p16_equal(
+                _p16_metrics(mg), _p16_metrics(me))
+            if len(sstep.graphs) != 1:
+                bad_b.append(f"{len(sstep.graphs)} superstep graphs")
+            problems += [f"16b: {b}" for b in bad_b]
+            wall["16b"] = time.perf_counter() - t
+
+            t = time.perf_counter()
+            _, chain, state, tasks = configs[0]  # the fp32 V2 with Muon
+            stale, bad_c = _p16_stale(chain, state, tasks[0][1], root)
+            problems += [f"16c: {b}" for b in bad_c]
+            wall["16c"] = time.perf_counter() - t
+        finally:
+            cudnn.deterministic = deterministic
+
+        t = time.perf_counter()
+        cudnn.deterministic = False
+        try:
+            _, chain, state, tasks = configs[1]  # momentum SGD, as 7c holds the card
+            sg, se, _, _ = _p16_trajectory(chain, state, tasks, 3)
+            reading_d = _traj(_flat(sg.model), _flat(se.model), _flat(state.model))
+        finally:
+            cudnn.deterministic = deterministic
+        if not reading_d <= TRAJ_TOL:
+            problems.append(f"16d: determinism off, captured vs eager {reading_d:.3e} > "
+                            f"{TRAJ_TOL}")
+        wall["16d"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        profiles = {}
+        if device != "cpu":
+            for label, idx in (("bf16 V2 step", 2), ("bf16 v5 pair", -1)):
+                _, chain, state, tasks = configs[idx]
+                for mode in ("eager", "captured"):
+                    st = state.clone()
+                    fns = [make_xvec_step(chain, kw, capture=None if mode == "captured"
+                                          else False) for kw, _ in tasks]
+
+                    def call():
+                        for fn, (_, b) in zip(fns, tasks):
+                            fn(st, *b[0], 1.0)
+
+                    profiles[(label, mode)] = _launch_profile(call)
+        wall["16e"] = time.perf_counter() - t
+    counts = dict(graphs.counts, live=graphs.live_graphs())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device != "cpu" else 0.0
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t0
+    where = env["smi"] if env else device
+    prof = "; ".join(
+        f"{label} {mode}: idle {100 * p['idle']:.1f}% (device busy {p['busy_ms']:.3f} of "
+        f"{p['wall_ms']:.3f} ms a call), {p['device_ops']:.1f} device ops and "
+        f"{p['host_calls']:.1f} host launch/copy calls a call ({p['graph_launches']:.1f} "
+        f"graph launches)" for (label, mode), p in profiles.items()) or "not measured (CPU)"
+    log(f"phase 16 graphs on {where}: 16a {steps} steps captured vs eager (capture=False), "
+        f"cudnn.deterministic, TF32 off, bench shapes ({shapes.chunks} x {shapes.chunk_frames}; "
+        f"am {shapes.am_chunks} x {shapes.am_frames}): " + "; ".join(lines)
+        + f"; 16b K={shapes.superstep} superstep x 2 vs {2 * shapes.superstep} eager steps (bf16 "
+        f"V2): {'equal' if not bad_b else 'DIFFERS ' + str(bad_b[:4])}; 16c "
+        + ", ".join(f"{k} {v}" for k, v in stale.items())
+        + f"; 16d determinism off, 3 momentum-SGD steps ||p_captured - p_eager|| / ||p_eager - "
+        f"p_init|| {reading_d:.3e} (limit {TRAJ_TOL}); 16e torch.profiler over "
+        f"{P16_PROFILED} calls after one: {prof}; captures {counts['captures']}, replays "
+        f"{counts['replays']}, live graphs {counts['live']}, peak memory {peak_gb:.2f} GB; "
+        f"wall " + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items())
+        + f"; {total:.1f} s against its {P16_BUDGET_S:.0f} s budget "
+        f"({'within' if total <= P16_BUDGET_S else 'over'})")
+    if problems:
+        raise AssertionError("phase 16: " + "; ".join(problems[:12]))
+    return {"profiles": profiles, "stale": stale, "reading_d": reading_d, "counts": counts,
+            "peak_gb": peak_gb, "wall": total}
+
+
 P15_BUDGET_S = 60.0  # phase 15's wall, reported against this budget
 P15_REPEATS = 10  # timed runs per measurement
 
@@ -3800,14 +4218,24 @@ def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
     """Phase 15: `sepi_tpu_torch.bench.main` in-process (it prints its own
     JSON line), with the MFCC's launches counted from 0 around it.
     ``shapes`` narrows it for a CPU rehearsal (``device="cpu"``)."""
+    import torch
+
     from sepi_tpu_torch import bench
     from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.train import graphs
 
     shapes = shapes or bench.Shapes()
     t0 = time.perf_counter()
     mfcc_cuda.mfcc_fused.launches = 0
+    graphs.reset_counts()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
     line, runs = bench.main(device=device, repeats=repeats, shapes=shapes)
     launches = mfcc_cuda.mfcc_fused.launches
+    problems = []
+    graph_counts = _graph_counts(device, "the bench", problems)
+    if problems:
+        raise AssertionError("phase 15: " + "; ".join(problems))
     wall = time.perf_counter() - t0
     # the checked call, the warm-ups and the timed runs, one launch each
     calls = 1 + shapes.warmup + repeats * shapes.extract_iters
@@ -3826,9 +4254,13 @@ def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
         f"{ext.mfcc_err:.3e} (limit {bench.MFCC_TOL}), embeddings {tuple(ext.embeddings.shape)} "
         f"finite, last objf " + ", ".join(f"{k} {v:.4f}" for k, v in tr.objf.items())
         + f", trial block vs float64 {pl.block_err:.3e} (limit {bench.PLDA_RTOL}); MFCC "
-        f"launches {launches}; {wall:.1f} s against its {P15_BUDGET_S:.0f} s budget "
+        f"launches {launches}; {_fmt_graphs(graph_counts)}; eager (capture=False) medians "
+        + ", ".join(f"{n} {t.median / per:.3f} ms" for (n, t), per in zip(
+            tr.eager_timings.items(), (1, shapes.superstep, 1, shapes.pair_superstep)))
+        + f"; {wall:.1f} s against its {P15_BUDGET_S:.0f} s budget "
         f"({'within' if wall <= P15_BUDGET_S else 'over'})")
-    return {"launches": launches, "mfcc_err": ext.mfcc_err, "line": line, "wall": wall}
+    return {"launches": launches, "mfcc_err": ext.mfcc_err, "line": line, "wall": wall,
+            "graphs": graph_counts}
 
 
 def main() -> int:
@@ -3900,6 +4332,7 @@ def main() -> int:
     cli_run = phase_cli(env, drv["corpus"])
     mesh_run = phase_mesh(env, drv)
     parity = phase_parity(env)
+    phase_graphs(env)
     bench_run = phase_bench(env)
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,

@@ -20,8 +20,12 @@ work at the same shapes, through the port's own entry points.
 - `bench_plda_scoring`: `plda_score_matrix_device` on 4096 x 4096 trials
   of a synthetic, well-conditioned 150-dim `Plda`.
 
-How it times: eager PyTorch as users run it (no CUDA graph, no
-`torch.compile`; `bench.py`'s on-device loop has no CUDA counterpart).
+How it times: the port as users run it.  The training steps are the
+step factories' default on the card, captured CUDA graphs
+(`train.graphs`, the counterpart of `bench.py`'s jitted step and scan),
+captured in the first warm-up call as `bench.py`'s first call compiles;
+the same steps with ``capture=False`` are timed too and go to standard
+error only.  Extraction and scoring run eagerly (no `torch.compile`).
 After ``Shapes.warmup`` calls, each of ``repeats`` runs times its stage's
 calls back to back between two `torch.cuda.synchronize()` calls on the
 host clock; the line reports the median run, and the quartiles and the
@@ -232,6 +236,7 @@ class TrainingRun:
     v2_metrics: Dict[str, torch.Tensor]  # the last single step's metrics
     timings: Dict[str, Timing]  # v2, v2_superstep, v5_pair, v5_superstep (per call)
     objf: Dict[str, float]  # each measurement's last objective
+    eager_timings: Dict[str, Timing]  # the same four with capture=False
 
 
 def _snapshot(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -259,7 +264,11 @@ def bench_training(rng: np.random.Generator, extra: dict, device: DeviceLike = "
     """The bf16 V2 step, the K = 16 superstep, the v5 am+xvec pair and the
     K = 8 pair superstep, into ``extra`` as `bench.py` names them.  Each
     superstep and the pair start from their model's initial state, as
-    `bench.py`'s functional loops do."""
+    `bench.py`'s functional loops do.  The steps are the factories'
+    default, captured CUDA graphs on the card (each captured in its first
+    warm-up call, as `bench.py`'s first call compiles); the same four
+    measurements with ``capture=False``, each from the initial state
+    again, go to standard error beside them."""
     from .models import CombinedCVector, XVector
     from .train import (build_optimizer, create_train_state, make_am_step, make_superstep,
                         make_xvec_step)
@@ -275,67 +284,79 @@ def bench_training(rng: np.random.Generator, extra: dict, device: DeviceLike = "
     feats_np = rng.normal(size=(tb, t, cfg.feat_dim)).astype(np.float32)
     labels_np = rng.integers(0, cfg.num_speakers, size=tb).astype(np.int32)
     feats_v2, labels_v2 = put(feats_np), put(labels_np)
-    # bf16 compute in the caller's model alone (no autocast); TF32 off as
-    # in the trainers
-    with fp32_math():
-        state_v2 = create_train_state(XVector(cfg, dtype="bfloat16"), tx, 1, dev)
-        init_v2 = _snapshot(state_v2.model)
-        state_sup = state_v2.clone()
-        step = make_xvec_step(tx)
-        t_v2, m_v2 = time_calls(lambda: step(state_v2, feats_v2, labels_v2, 1.0), dev,
-                                shapes.step_iters, repeats, shapes.warmup)
+    feats_s = put(rng.normal(size=(k, tb, t, cfg.feat_dim)).astype(np.float32))
+    labels_s = put(rng.integers(0, cfg.num_speakers, size=(k, tb)).astype(np.int32))
+    ones = torch.ones(k, device=dev)
+    al, ar = v5_cfg.am_context
+    ab, al_frames = shapes.am_chunks, shapes.am_frames
+    feats_am = put(rng.normal(size=(ab, al_frames + al + ar, v5_cfg.feat_dim)).astype(np.float32))
+    labels_am = put(rng.integers(0, v5_cfg.num_senones, size=(ab, al_frames)).astype(np.int32))
 
-        sstep = make_superstep(tx)
-        feats_s = put(rng.normal(size=(k, tb, t, cfg.feat_dim)).astype(np.float32))
-        labels_s = put(rng.integers(0, cfg.num_speakers, size=(k, tb)).astype(np.int32))
-        ones = torch.ones(k, device=dev)
-        t_sup, m_sup = time_calls(lambda: sstep(state_sup, feats_s, labels_s, ones), dev,
-                                  shapes.superstep_iters, repeats, shapes.warmup)
-        del feats_s
+    def stack(x):  # the pair superstep's K5 copies of each batch, staged once
+        return x.unsqueeze(0).expand(k5, *x.shape).contiguous()
 
-        al, ar = v5_cfg.am_context
-        ab, al_frames = shapes.am_chunks, shapes.am_frames
-        feats_am = put(rng.normal(size=(ab, al_frames + al + ar, v5_cfg.feat_dim))
-                       .astype(np.float32))
-        labels_am = put(rng.integers(0, v5_cfg.num_senones, size=(ab, al_frames))
-                        .astype(np.int32))
-        state_v5 = create_train_state(CombinedCVector(v5_cfg, dtype="bfloat16"), tx, 2, dev)
-        init_v5 = _snapshot(state_v5.model)
-        state_v5s = state_v5.clone()
-        am_step = make_am_step(tx, {"task": "am"})
-        xv_step = make_xvec_step(tx, {"task": "xvec"})
+    fa_s, la_s, fx_s, lx_s = (stack(x) for x in (feats_am, labels_am, feats_v2, labels_v2))
+    w5 = torch.ones(k5, device=dev)
+
+    def measure(v2_0, v5_0, capture: Optional[bool]):
+        """The four measurements from clones of the initial states:
+        {name: (timing, last metrics, state)}."""
+        out = {}
+        state = v2_0.clone()
+        step = make_xvec_step(tx, capture=capture)
+        out["v2"] = (*time_calls(lambda: step(state, feats_v2, labels_v2, 1.0), dev,
+                                 shapes.step_iters, repeats, shapes.warmup), state)
+        state_sup = v2_0.clone()
+        sstep = make_superstep(tx, capture=capture)
+        out["v2_superstep"] = (*time_calls(lambda: sstep(state_sup, feats_s, labels_s, ones),
+                                           dev, shapes.superstep_iters, repeats, shapes.warmup),
+                               state_sup)
+        state_v5 = v5_0.clone()
+        am_step = make_am_step(tx, {"task": "am"}, capture=capture)
+        xv_step = make_xvec_step(tx, {"task": "xvec"}, capture=capture)
 
         def pair():
-            m_am = am_step(state_v5, feats_am, labels_am, 1.0)
-            m_xv = xv_step(state_v5, feats_v2, labels_v2, 1.0)
-            return m_am, m_xv
+            return (am_step(state_v5, feats_am, labels_am, 1.0),
+                    xv_step(state_v5, feats_v2, labels_v2, 1.0))
 
-        t_v5, m_v5 = time_calls(pair, dev, shapes.step_iters, repeats, shapes.warmup)
-
-        # the pair superstep over K5 copies of each batch, staged once
-        am_sstep = make_superstep(tx, {"task": "am"})
-        xv_sstep = make_superstep(tx, {"task": "xvec"})
-
-        def stack(x):
-            return x.unsqueeze(0).expand(k5, *x.shape).contiguous()
-
-        fa_s, la_s, fx_s, lx_s = (stack(x) for x in (feats_am, labels_am, feats_v2, labels_v2))
-        w5 = torch.ones(k5, device=dev)
+        out["v5_pair"] = (*time_calls(pair, dev, shapes.step_iters, repeats, shapes.warmup),
+                          state_v5)
+        state_v5s = v5_0.clone()
+        am_sstep = make_superstep(tx, {"task": "am"}, capture=capture)
+        xv_sstep = make_superstep(tx, {"task": "xvec"}, capture=capture)
 
         def super_pair():
             return (am_sstep(state_v5s, fa_s, la_s, w5), xv_sstep(state_v5s, fx_s, lx_s, w5))
 
-        t_v5s, m_v5s = time_calls(super_pair, dev, shapes.superstep_iters, repeats,
-                                  shapes.warmup)
-    _sync(dev)
+        out["v5_superstep"] = (*time_calls(super_pair, dev, shapes.superstep_iters, repeats,
+                                           shapes.warmup), state_v5s)
+        _sync(dev)
+        return out
 
-    objf = {"v2": _check_trained("v2 step", state_v2, init_v2, m_v2),
-            "v2_superstep": _check_trained("v2 superstep", state_sup, init_v2, m_sup)}
-    for name, st, ms in (("v5_pair", state_v5, m_v5), ("v5_superstep", state_v5s, m_v5s)):
-        for task, m in zip(("am", "xvec"), ms):
-            objf[f"{name}_{task}"] = _check_trained(f"{name} {task}", st, init_v5, m)
+    # bf16 compute in the caller's model alone (no autocast); TF32 off as
+    # in the trainers
+    with fp32_math():
+        v2_0 = create_train_state(XVector(cfg, dtype="bfloat16"), tx, 1, dev)
+        v5_0 = create_train_state(CombinedCVector(v5_cfg, dtype="bfloat16"), tx, 2, dev)
+        init_v2, init_v5 = _snapshot(v2_0.model), _snapshot(v5_0.model)
+        runs = measure(v2_0, v5_0, None)
+        eager = measure(v2_0, v5_0, False)
+    del v2_0, v5_0
+
+    objf = {}
+    for kind, meas in (("", runs), ("eager ", eager)):
+        for name in ("v2", "v2_superstep"):
+            _, m, st = meas[name]
+            objf[kind + name] = _check_trained(kind + name, st, init_v2, m)
+        for name in ("v5_pair", "v5_superstep"):
+            _, ms, st = meas[name]
+            for task, m in zip(("am", "xvec"), ms):
+                objf[f"{kind}{name}_{task}"] = _check_trained(f"{kind}{name} {task}", st,
+                                                              init_v5, m)
 
     frames_s = tb * t * 0.01  # 10 ms frames -> audio seconds
+    t_v2, t_sup, t_v5, t_v5s = (runs[n][0] for n in ("v2", "v2_superstep", "v5_pair",
+                                                       "v5_superstep"))
     dt_v2, dt_sup = t_v2.median, t_sup.median / k
     dt_v5, dt_v5s = t_v5.median, t_v5s.median / k5
     extra["v2_train_ms_per_step"] = round(dt_v2, 3)
@@ -345,16 +366,20 @@ def bench_training(rng: np.random.Generator, extra: dict, device: DeviceLike = "
     extra["v2_superstep16_audio_s_per_s"] = round(frames_s / (dt_sup / 1e3), 1)
     extra["v5_multitask_ms_per_step_pair"] = round(dt_v5, 3)
     extra["v5_superstep8_ms_per_step_pair"] = round(dt_v5s, 3)
-    _log(f"# v2 train bf16 {tb}x{t} on {dev}: {t_v2.describe(unit='step')}")
-    _log(f"# v2 superstep K={k}: {t_sup.describe(per=k, unit='step')}")
-    _log(f"# v5 multitask pair (am {ab}x{al_frames} + xvec {tb}x{t}): "
-         f"{t_v5.describe(unit='pair')}")
-    _log(f"# v5 pair superstep K={k5}: {t_v5s.describe(per=k5, unit='pair')}")
+    how = "captured" if dev.type == "cuda" else "eager (CPU)"
+    for name, what, per, unit in (
+            ("v2", f"v2 train bf16 {tb}x{t}", 1, "step"),
+            ("v2_superstep", f"v2 superstep K={k}", k, "step"),
+            ("v5_pair", f"v5 multitask pair (am {ab}x{al_frames} + xvec {tb}x{t})", 1, "pair"),
+            ("v5_superstep", f"v5 pair superstep K={k5}", k5, "pair")):
+        _log(f"# {what} on {dev}, {how}: {runs[name][0].describe(per=per, unit=unit)}; "
+             f"eager (capture=False): {eager[name][0].describe(per=per, unit=unit)}")
     _log("# training checks: objectives finite, every parameter moved, float32 parameters "
          "under bf16 compute; last objf " + ", ".join(f"{n} {v:.4f}" for n, v in objf.items()))
+    _, m_v2, state_v2 = runs["v2"]
     return TrainingRun(init_v2, (feats_np, labels_np), state_v2, m_v2,
-                       {"v2": t_v2, "v2_superstep": t_sup, "v5_pair": t_v5,
-                        "v5_superstep": t_v5s}, objf)
+                       {n: r[0] for n, r in runs.items()}, objf,
+                       {n: r[0] for n, r in eager.items()})
 
 
 # ---------------------------------------------------------------- PLDA scoring

@@ -22,14 +22,19 @@ in optax's order:
    every parameter outside a batchnorm.
 
 Every count starts at 0 at the first update.  Scalars derived from the
-step count are computed on the host in float32 as the reference does, so
-a step never waits for the device.  Only the module's parameters take
-part: the batchnorm's fixed zero offset is a buffer.
+step count (`StepScalars`: the learning rate, the shrink factor, the bias
+corrections) are computed on the host in float32 as the reference does,
+so a step never waits for the device.  A captured step (`train.graphs`)
+cannot take host floats that change each step: it reads the same float32
+numbers from a device row that the host fills before each replay
+(`OptimizerChain.scalar_rows`), and every op that takes one rounds as it
+does with the host float.  Only the module's parameters take part: the
+batchnorm's fixed zero offset is a buffer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,6 +123,58 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+def _shrink_factor(shrink: float, lr: float, exponent: float) -> float:
+    """1 - (1 - shrink*lr)^exponent in float32."""
+    return float(np.float32(1.0) - (np.float32(1.0) - np.float32(shrink) * np.float32(lr))
+                 ** np.float32(exponent))
+
+
+def _reciprocal(x: float) -> float:
+    return float(np.float32(1.0) / np.float32(x))
+
+
+Scalar = Union[float, torch.Tensor]
+
+
+class StepScalars(NamedTuple):
+    """The per-step scalars of one update at count ``c``: host floats
+    (eager) or 0-dim float32 views of a device row (a captured step).
+    ``bc_*`` are bias corrections 1 - decay^n (beta = max(momentum, 0.9)
+    for Muon, Adam's b1 and b2) at n = c + 1 (``_c1``) and c + 2
+    (``_c2``); ``inv_*`` their float32 reciprocals."""
+
+    lr: Scalar
+    shrink: Scalar
+    bc_beta_c1: Scalar
+    bc_beta_c2: Scalar
+    bc_b1_c1: Scalar
+    bc_b1_c2: Scalar
+    bc_b2_c1: Scalar
+    inv_beta_c1: Scalar
+    inv_beta_c2: Scalar
+    inv_b1_c1: Scalar
+    inv_b1_c2: Scalar
+    inv_b2_c1: Scalar
+
+
+def _div(t: torch.Tensor, d: Scalar, inv: Scalar) -> torch.Tensor:
+    """``t / d`` rounded as torch rounds ``t / float``: on a CUDA tensor
+    that op multiplies by the host scalar's float32 reciprocal, so a device
+    ``d`` takes its reciprocal ``inv`` there; elsewhere it divides
+    (`tools/graph_ops_probe.py`)."""
+    if isinstance(d, torch.Tensor) and t.is_cuda:
+        return t * inv
+    return t / d
+
+
+def _foreach_div(ts, d: Scalar, inv: Scalar):
+    """`torch._foreach_div(ts, d)` rounded as with a host float ``d``: on
+    CUDA that op, too, multiplies by the float32 reciprocal."""
+    if isinstance(d, torch.Tensor) and ts[0].is_cuda:
+        return torch._foreach_mul(ts, inv)
+    return torch._foreach_div(ts, d)
+
+
 def newton_schulz(x: torch.Tensor, steps: int = NS_STEPS, eps: float = EPS) -> torch.Tensor:
     """optax's `orthogonalize_via_newton_schulz` on a matrix in Flax's
     (in, out) orientation: transposed when rows > cols, normalised by its
@@ -151,12 +208,14 @@ def clip_update_norm(updates: Dict[str, torch.Tensor], max_change: float) -> Non
 
 
 def proportional_shrink(updates: Dict[str, torch.Tensor], params: Mapping[str, torch.Tensor],
-                        shrink: float, lr: float, exponent: float) -> None:
+                        shrink: float, lr: float, exponent: float,
+                        factor: Optional[Scalar] = None) -> None:
     """u -= (1 - (1 - shrink*lr)^exponent) * p for every parameter outside
     a batchnorm (in place): the reference's once-per-iteration shrink
-    spread over steps."""
-    factor = float(np.float32(1.0) - (np.float32(1.0) - np.float32(shrink) * np.float32(lr))
-                   ** np.float32(exponent))
+    spread over steps.  ``factor``, when given, is that coefficient
+    (`StepScalars.shrink`, a device scalar in a captured step)."""
+    if factor is None:
+        factor = _shrink_factor(shrink, lr, exponent)
     names = [n for n in updates if "batchnorm" not in n.split(".")]
     torch._foreach_sub_([updates[n] for n in names],
                         torch._foreach_mul([params[n] for n in names], factor))
@@ -195,13 +254,32 @@ class OptimizerChain:
         nu = {n: torch.zeros_like(p) for n, p in params.items() if p.ndim != 2}
         return {"count": 0, "mu": zeros, "nu": nu}
 
+    def scalars(self, count: int) -> StepScalars:
+        """The host's float32 scalars of the update at ``count``."""
+        lr = self.schedule(count)
+        shrink = (_shrink_factor(self.cfg.proportional_shrink, lr, self.exponent)
+                  if self.cfg.proportional_shrink > 0 else 0.0)
+        c1, b = count + 1, self.beta
+        bc = (_bias_correction(b, c1), _bias_correction(b, c1 + 1),
+              _bias_correction(ADAM_B1, c1), _bias_correction(ADAM_B1, c1 + 1),
+              _bias_correction(ADAM_B2, c1))
+        return StepScalars(lr, shrink, *bc, *(_reciprocal(x) for x in bc))
+
+    def scalar_rows(self, count: int, k: int = 1) -> np.ndarray:
+        """(k, len(StepScalars)) float32: the scalars of counts count ..
+        count + k - 1, the rows a captured step reads."""
+        return np.asarray([self.scalars(count + i) for i in range(k)], np.float32)
+
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,
-               params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+               params: Mapping[str, torch.Tensor],
+               scalars: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """``scalars``: a device row of `scalar_rows` for this count, read
+        in place of the host's floats (a captured step); None computes them."""
         count = state["count"]
-        lr = self.schedule(count)
+        s = self.scalars(count) if scalars is None else StepScalars(*scalars.unbind(0))
         if self.muon:
-            updates = self._muon_adam(grads, state, count, lr)
+            updates = self._muon_adam(grads, state, s)
         else:
             names = list(grads)
             g = [grads[n] for n in names]
@@ -211,31 +289,30 @@ class OptimizerChain:
             trace = [state["trace"][n] for n in names]
             torch._foreach_mul_(trace, self.cfg.momentum)
             torch._foreach_add_(trace, g)  # g + momentum * trace
-            updates = dict(zip(names, torch._foreach_mul(trace, -lr)))
+            updates = dict(zip(names, torch._foreach_mul(trace, -s.lr)))
         clip_update_norm(updates, self.cfg.max_param_change)
         if self.lr_factors:
             for n, f in subtree_lr_factors(list(updates), self.lr_factors).items():
                 if f != 1.0:
                     updates[n].mul_(f)
         if self.cfg.proportional_shrink > 0:
-            proportional_shrink(updates, params, self.cfg.proportional_shrink, lr,
-                                self.exponent)
+            proportional_shrink(updates, params, self.cfg.proportional_shrink, s.lr,
+                                self.exponent, factor=s.shrink)
         state["count"] = count + 1
         return updates
 
-    def _muon_adam(self, grads, state, count, lr):
-        c1 = count + 1
+    def _muon_adam(self, grads, state, s: StepScalars):
         updates = {}
         for n, g in grads.items():
             if g.ndim == 2:
                 b, mu = self.beta, state["mu"][n]
                 mu.copy_((1 - b) * g + b * mu)
-                mu_hat = (b * (mu / _bias_correction(b, c1 + 1))
-                          + (1 - b) * (g / _bias_correction(b, c1)))
+                mu_hat = (b * _div(mu, s.bc_beta_c2, s.inv_beta_c2)
+                          + (1 - b) * _div(g, s.bc_beta_c1, s.inv_beta_c1))
                 # torch Linear weight (out, in) -> Flax kernel (in, out)
                 k = mu_hat.T
                 factor = float(np.sqrt(np.float32(max(1.0, k.shape[1] / k.shape[0]))))
-                updates[n] = (newton_schulz(k) * factor).T * (-lr)
+                updates[n] = (newton_schulz(k) * factor).T * (-s.lr)
         # Adam on the rest, as one multi-tensor op per line
         names = [n for n, g in grads.items() if g.ndim != 2]
         g = [grads[n] for n in names]
@@ -245,14 +322,13 @@ class OptimizerChain:
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - ADAM_B1))  # (1-b1) g + b1 mu
         torch._foreach_mul_(nu, ADAM_B2)
         torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2))
-        mu_hat = torch._foreach_mul(torch._foreach_div(mu, _bias_correction(ADAM_B1, c1 + 1)),
-                                    ADAM_B1)
+        mu_hat = torch._foreach_mul(_foreach_div(mu, s.bc_b1_c2, s.inv_b1_c2), ADAM_B1)
         torch._foreach_add_(mu_hat, torch._foreach_mul(
-            torch._foreach_div(g, _bias_correction(ADAM_B1, c1)), 1 - ADAM_B1))
-        den = torch._foreach_sqrt(torch._foreach_div(nu, _bias_correction(ADAM_B2, c1)))
+            _foreach_div(g, s.bc_b1_c1, s.inv_b1_c1), 1 - ADAM_B1))
+        den = torch._foreach_sqrt(_foreach_div(nu, s.bc_b2_c1, s.inv_b2_c1))
         torch._foreach_add_(den, EPS)
         step = torch._foreach_div(mu_hat, den)
-        torch._foreach_mul_(step, -lr)
+        torch._foreach_mul_(step, -s.lr)
         updates.update(zip(names, step))
         return {n: updates[n] for n in grads}
 

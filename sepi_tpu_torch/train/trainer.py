@@ -15,6 +15,12 @@ A step leaves its metrics on the device; the host reads them only where
 it logs or evaluates, so the card is not stalled once a step.  Input
 batches are staged ahead of use from pinned host memory on a side stream.
 
+On a CUDA state without a mesh the step factories return captured steps
+(`train.graphs`), the counterpart of the reference's jit: a step is one
+CUDA graph replay, a K-step superstep one replay of its K steps unrolled,
+with the eager step's numbers.  ``capture=False`` runs eagerly (the
+counterpart of `jax.disable_jit`); the CPU and a mesh run eagerly.
+
 With a ``mesh`` (`parallel.make_mesh`) a step is one step on the global
 batch, as the reference's GSPMD step is: each rank takes its shard of the
 batch, its batch norms average their moments over the mesh's data axis
@@ -41,6 +47,8 @@ import torch.nn.functional as F
 from ..models.tdnn import batch_moments, lecun_normal_init, sync_batch_norm
 from ..parallel.mesh import (batch_sharded, broadcast_state, data_group, local_shard,
                              reduce_sum_, superbatch_sharded)
+from .graphs import StepGraphs, eager_superstep
+from .graphs import state_tensors as _state_tensors
 from .optim import OptimizerChain, apply_updates, global_norm
 
 
@@ -63,20 +71,6 @@ class TrainState:
 def init_weights(model: torch.nn.Module, seed: int) -> None:
     """The initial weights of a training run (Flax's initialisation)."""
     lecun_normal_init(model, seed)
-
-
-def _state_tensors(state: TrainState):
-    """Parameters, buffers and optimizer-state tensors, in a fixed order."""
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            yield x
-        elif isinstance(x, dict):
-            for k in sorted(x):
-                yield from walk(x[k])
-
-    yield from (t.data for t in state.model.parameters())
-    yield from state.model.buffers()
-    yield from walk(state.opt_state)
 
 
 def create_train_state(model: torch.nn.Module, tx: OptimizerChain, seed: int,
@@ -109,7 +103,8 @@ def _reduced_bn(model: torch.nn.Module, group):
 
 def _ce_step(tx: OptimizerChain, kw: Dict, group):
     """The CE step on this rank's batch; with a process ``group`` the
-    batch norms, gradients and metrics are reduced over it."""
+    batch norms, gradients and metrics are reduced over it.  ``scalars``
+    is the chain's device row of per-step scalars in a captured step."""
     zeros: Dict[str, torch.Tensor] = {}
 
     def zero_like(name: str, p: torch.Tensor) -> torch.Tensor:
@@ -117,7 +112,7 @@ def _ce_step(tx: OptimizerChain, kw: Dict, group):
             zeros[name] = torch.zeros_like(p)
         return zeros[name]
 
-    def step(state: TrainState, feats, labels, weight=1.0):
+    def step(state: TrainState, feats, labels, weight=1.0, scalars=None):
         model = state.model
         model.train()
         params = state.params()
@@ -137,14 +132,26 @@ def _ce_step(tx: OptimizerChain, kw: Dict, group):
                 reduce_sum_([objf_acc], group, mean=True)
             metrics = {"objf": objf_acc[0], "accuracy": objf_acc[1],
                        "grad_norm": global_norm(grads.values())}
-        apply_updates(params, tx.update(grads, state.opt_state, params))
+        apply_updates(params, tx.update(grads, state.opt_state, params, scalars))
         state.step += 1
         return metrics
 
     return step
 
 
-def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None):
+def _captures(capture: Optional[bool], mesh) -> bool:
+    """Whether a factory's step may capture: ``capture=None`` captures on
+    a CUDA state and runs eagerly on the CPU; a mesh runs eagerly."""
+    if mesh is not None:
+        if capture:
+            raise ValueError("capture=True with a mesh: a mesh step runs eagerly "
+                             "(capture=None or False)")
+        return False
+    return capture is not False
+
+
+def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None,
+                   capture: Optional[bool] = None):
     """The CE train step: ``step(state, feats, labels, weight)`` updates
     ``state`` in place and returns {objf, accuracy, grad_norm} as device
     scalars.  Labels are (B,) for speaker chunks or (B, L) for per-frame
@@ -155,12 +162,20 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=
     chain still moves it (momentum, shrink).  The zero tensors are made
     once per step function and shared by its steps.
 
+    ``capture`` (the counterpart of `jax.disable_jit`): None replays a
+    CUDA graph of the step on a CUDA state (`train.graphs`: one capture per
+    batch shape and state identity) and runs eagerly on the CPU; False
+    always runs eagerly; True raises on a CPU state or with a mesh.
+
     With a ``mesh``, ``feats`` and ``labels`` are the global batch: a
     DTensor (`parallel.assemble_global_batch`, what `Trainer(mesh=...)`
     stages) whose local shard this rank takes, or a tensor every rank
     holds, of which this rank takes its data-axis rows; a batch the data
-    axis does not divide raises."""
-    body = _ce_step(tx, dict(task_kwargs or {}), data_group(mesh))
+    axis does not divide raises.  A mesh step runs eagerly."""
+    kw = dict(task_kwargs or {})
+    body = _ce_step(tx, kw, data_group(mesh))
+    if _captures(capture, mesh):
+        return StepGraphs(body, tx, kw, body, capture=capture)
     if mesh is None:
         return body
 
@@ -170,26 +185,33 @@ def make_xvec_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=
     return step
 
 
-def make_am_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None):
+def make_am_step(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None,
+                 capture: Optional[bool] = None):
     """The per-frame senone CE step: labels (B, L) aligned with the
     logits' frames (the sampler cuts the model's context margin around
     them), against ``logits`` or, in a multitask model, ``am_logits``.
     The same step as `make_xvec_step`, as in the reference."""
-    return make_xvec_step(tx, task_kwargs, mesh)
+    return make_xvec_step(tx, task_kwargs, mesh, capture)
 
 
-def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None):
+def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=None,
+                   capture: Optional[bool] = None):
     """K train steps back to back: ``sstep(state, feats (K, B, ...),
     labels (K, B, ...), weights (K,))`` runs the CE step on each slice in
-    order and returns each metric stacked to (K,).  With a ``mesh`` the
-    batch axis (dim 1) is sharded over the data axis."""
-    body = _ce_step(tx, dict(task_kwargs or {}), data_group(mesh))
+    order and returns each metric stacked to (K,).  On a CUDA state
+    (``capture`` as in `make_xvec_step`) the K steps are one graph replay,
+    as the reference's `lax.scan` is one dispatch.  With a ``mesh`` the
+    batch axis (dim 1) is sharded over the data axis, eagerly."""
+    kw = dict(task_kwargs or {})
+    body = _ce_step(tx, kw, data_group(mesh))
+    eager = eager_superstep(body)
+    if _captures(capture, mesh):
+        return StepGraphs(body, tx, kw, eager, superstep=True, capture=capture)
+    if mesh is None:
+        return eager
 
     def sstep(state: TrainState, feats, labels, weights):
-        if mesh is not None:
-            feats, labels = local_shard(feats, mesh, 1), local_shard(labels, mesh, 1)
-        out = [body(state, feats[k], labels[k], weights[k]) for k in range(feats.shape[0])]
-        return {m: torch.stack([o[m] for o in out]) for m in out[0]}
+        return eager(state, local_shard(feats, mesh, 1), local_shard(labels, mesh, 1), weights)
 
     return sstep
 

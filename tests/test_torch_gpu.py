@@ -826,3 +826,111 @@ def test_bench_check_catches_a_planted_kernel_fault(cuda, monkeypatch):
     with pytest.raises(bench.BenchCheckFailed, match="MFCC"):
         bench.bench_extraction(np.random.default_rng(0), device="cuda",
                                shapes=bench.Shapes(**GPU_BENCH), repeats=1)
+
+
+# ------------------------------------------------------------- the captured step
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda):
+    keep = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False
+    yield cuda
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = keep
+
+
+def _tensors(state):
+    from sepi_tpu_torch.train.graphs import state_tensors
+
+    return list(state_tensors(state))
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+
+
+@pytest.mark.parametrize("opt,dtype", [("muon", "float32"), ("none", "float32"),
+                                       ("muon", "bfloat16")])
+def test_captured_steps_equal_eager_steps_on_the_card(deterministic_cudnn, opt, dtype):
+    """6 captured steps and a K = 3 superstep against the eager steps from
+    the same state, bit for bit under deterministic cuDNN."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.models import TdnnSpec, XVector, XVectorConfig, lecun_normal_init
+    from sepi_tpu_torch.train import (TrainState, build_optimizer, graphs, make_superstep,
+                                      make_xvec_step)
+
+    dev = deterministic_cudnn
+    specs = (TdnnSpec(64, (-2, -1, 0, 1, 2)), TdnnSpec(64, (-2, 0, 2)), TdnnSpec(192, (0,)))
+    model = XVector(XVectorConfig(feat_dim=23, num_speakers=12, frame_specs=specs,
+                                  embed_dim=64), dtype=dtype)
+    lecun_normal_init(model, 3)
+    chain, _ = build_optimizer(OptimizerConfig(preconditioner=opt), 100)
+    sg = TrainState(model.to(dev), chain.init(dict(model.named_parameters())))
+    se = sg.clone()
+    batches = [(torch.from_numpy(f).to(dev), torch.from_numpy(l).to(dev))
+               for f, l in _train_batches(count=9)]
+    step, sstep = make_xvec_step(chain), make_superstep(chain)
+    e_step = make_xvec_step(chain, capture=False)
+    for f, l in batches[:6]:
+        mg, me = step(sg, f, l, 1.0), e_step(se, f, l, 1.0)
+        assert all(torch.equal(mg[k], me[k]) for k in me)
+    f = torch.stack([b[0] for b in batches[6:]])
+    l = torch.stack([b[1] for b in batches[6:]])
+    mg = sstep(sg, f, l, torch.ones(3, device=dev))
+    me = [e_step(se, f[i], l[i], 1.0) for i in range(3)]
+    assert all(torch.equal(mg[k], torch.stack([m[k] for m in me])) for k in mg)
+    assert isinstance(step, graphs.StepGraphs) and len(step.graphs) == len(sstep.graphs) == 1
+    assert sg.step == se.step == 9 and _bit_equal(sg, se)
+
+
+def test_captured_step_recaptures_on_a_new_state_on_the_card(deterministic_cudnn, tmp_path):
+    """A clone and a loaded checkpoint each get a graph of their own and
+    step as the eager step does; the old graph replayed against a replaced
+    optimizer state (the planted fault) does not."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import load_checkpoint, make_xvec_step, save_checkpoint
+
+    dev = deterministic_cudnn
+    chain, state = _tiny_train_state(dev, OptimizerConfig())
+    f, l = (torch.from_numpy(x).to(dev) for x in _train_batches(count=1)[0])
+    step, e_step = make_xvec_step(chain), make_xvec_step(chain, capture=False)
+    step(state, f, l, 1.0)
+    first = next(iter(step.graphs.values()))
+    save_checkpoint(state, str(tmp_path), state.step)
+    step(state, f, l, 1.0)
+    held = []  # alive: a freed state's addresses could be taken by the next one
+    for make in (state.clone, lambda: load_checkpoint(state, str(tmp_path))):
+        a, b = make(), make()
+        held += [a, b]
+        step(a, f, l, 1.0)
+        e_step(b, f, l, 1.0)
+        assert _bit_equal(a, b)
+    assert len(step.graphs) == 3
+    old = state.opt_state  # noqa: F841  (alive: the old graph writes there)
+    state.opt_state = load_checkpoint(state, str(tmp_path)).opt_state
+    ref = state.clone()
+    e_step(ref, f, l, 1.0)
+    first.run(state, f, l, 1.0)
+    assert not _bit_equal(state, ref)
+
+
+def test_failed_capture_raises_on_the_card(cuda, monkeypatch):
+    """A capture that fails raises GraphCaptureError and leaves the state
+    as it was; capture=True works on a CUDA state."""
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.train import graphs, make_xvec_step
+
+    chain, state = _tiny_train_state(cuda, OptimizerConfig())
+    f, l = (torch.from_numpy(x).to(cuda) for x in _train_batches(count=1)[0])
+    before = [t.clone() for t in _tensors(state)]
+
+    def fail(dev, fn, pool):
+        raise RuntimeError("planted capture failure")
+
+    monkeypatch.setattr(graphs.BACKEND, "capture", fail)
+    with pytest.raises(graphs.GraphCaptureError, match="planted"):
+        make_xvec_step(chain, capture=True)(state, f, l, 1.0)
+    assert state.step == 0 and all(torch.equal(a, b) for a, b in zip(before, _tensors(state)))
+    monkeypatch.undo()
+    m = make_xvec_step(chain, capture=True)(state, f, l, 1.0)
+    assert state.step == 1 and bool(torch.isfinite(m["objf"]))

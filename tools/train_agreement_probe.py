@@ -16,9 +16,15 @@ The corpus, the features (phase 7b's corpus, MFCC on the card) and the
 CPU's 3 steps are made once; each fresh process runs the card's side.
 With ``--after-phases`` each process first runs chip_smoke.py's phases
 1-7b (build, kernels, the extraction, s5 and training paths), as the
-smoke script does before 7c, and only determinism off is run.
+smoke script does before 7c, and only determinism off is run.  The
+card's steps are the factory's default, captured CUDA graphs
+(``--captures auto``), eager (``off``), or both in turn (``auto,off``);
+each line records which, and the card's UUID and PCI bus id, so runs on
+several cards (one probe per card, ``CUDA_VISIBLE_DEVICES`` and
+``--work`` apart) can be told apart.
 
-    python3 tools/train_agreement_probe.py [--runs 20] [--after-phases]
+    python3 tools/train_agreement_probe.py [--runs 20] [--after-phases] \
+        [--captures auto,off] [--work DIR]
 
 writes one JSON line per run to ``--out`` (default
 build/train_agreement/runs.jsonl) and a summary per mode to standard
@@ -66,7 +72,7 @@ def _config(dataset):
     return dataclasses.replace(V2_XVECTOR, num_speakers=len(dataset.speaker_label_map()))
 
 
-def _steps(cfg, batches, device):
+def _steps(cfg, batches, device, capture=None):
     """Phase 7c's momentum-SGD run: (initial params, final params, objfs)."""
     import torch
 
@@ -77,7 +83,7 @@ def _steps(cfg, batches, device):
     chain, state = chip_smoke._train_state(cfg, device, OptimizerConfig(preconditioner="none"),
                                            seed=SEED)
     p0 = chip_smoke._flat(state.model)
-    step = make_xvec_step(chain)
+    step = make_xvec_step(chain, capture=capture)
     objf = []
     for b in batches:
         m = step(state, torch.from_numpy(b.feats).to(device), torch.from_numpy(b.labels).to(device),
@@ -125,7 +131,13 @@ def _phases_before_7c():
     chip_smoke.phase_train_path(env)
 
 
-def one(deterministic: bool, device="cuda", after_phases=False):
+def _card(torch) -> dict:
+    props = torch.cuda.get_device_properties(0)
+    return {"name": props.name, "uuid": str(getattr(props, "uuid", "")),
+            "pci_bus_id": getattr(props, "pci_bus_id", None)}
+
+
+def one(deterministic: bool, device="cuda", after_phases=False, capture=None):
     """The card's side in this process; prints one JSON line."""
     torch = _setup()
     if after_phases:
@@ -143,11 +155,11 @@ def one(deterministic: bool, device="cuda", after_phases=False):
     ref = torch.load(os.path.join(WORK, "cpu.pt"), weights_only=True)
     cfg = _config(dataset)
     batches = _batches(nosil, dataset)
-    p0, pd, objf = _steps(cfg, batches, device)
+    p0, pd, objf = _steps(cfg, batches, device, capture)
     err = chip_smoke._traj(pd, ref["pc"], ref["p0"])
     activity = ProfilerActivity.CPU if device == "cpu" else ProfilerActivity.CUDA
     with profile(activities=[activity]) as prof:
-        _, pd2, objf2 = _steps(cfg, batches, device)
+        _, pd2, objf2 = _steps(cfg, batches, device, capture)
         if device != "cpu":
             torch.cuda.synchronize()
     kernels = sorted({e.name for e in prof.events()
@@ -156,7 +168,10 @@ def one(deterministic: bool, device="cuda", after_phases=False):
                                                         "wgrad", "dgrad", "implicit"))})
     cudnn = torch.backends.cudnn
     print(json.dumps({
-        "deterministic": deterministic, "after_phases": after_phases, "err": err, "tol": chip_smoke.TRAJ_TOL,
+        "deterministic": deterministic, "after_phases": after_phases,
+        "capture": "off" if capture is False else "auto",
+        "card": _card(torch) if device != "cpu" else "cpu",
+        "err": err, "tol": chip_smoke.TRAJ_TOL,
         "objf_card": objf, "objf_cpu": ref["objf"],
         "profiled_err": chip_smoke._traj(pd2, ref["pc"], ref["p0"]), "objf_profiled": objf2,
         "cudnn": {"version": cudnn.version(), "enabled": cudnn.enabled,
@@ -168,6 +183,7 @@ def one(deterministic: bool, device="cuda", after_phases=False):
 
 
 def main(argv=None) -> int:
+    global WORK
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("mode", nargs="?", default="all", choices=["all", "prepare", "one"])
     p.add_argument("--runs", type=int, default=20, help="fresh processes per mode")
@@ -175,47 +191,58 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="'cpu' rehearses the probe without a card")
     p.add_argument("--after-phases", action="store_true",
                    help="run chip_smoke.py's phases 1-7b in each process first (determinism off)")
-    p.add_argument("--out", default=os.path.join(WORK, "runs.jsonl"),
-                   help="one JSON line per run")
+    p.add_argument("--captures", default="auto",
+                   help="comma-separated: auto (the factory's default) and/or off (eager)")
+    p.add_argument("--work", default=WORK, help="the prepared corpus and CPU steps")
+    p.add_argument("--out", default=None,
+                   help="one JSON line per run (default <work>/runs.jsonl)")
     args = p.parse_args(argv)
+    WORK = os.path.abspath(args.work)
+    args.out = args.out or os.path.join(WORK, "runs.jsonl")
+    captures = args.captures.split(",")
     if args.mode == "prepare":
         prepare(args.device)
         return 0
     if args.mode == "one":
-        one(bool(args.deterministic), args.device, args.after_phases)
+        one(bool(args.deterministic), args.device, args.after_phases,
+            False if captures[0] == "off" else None)
         return 0
     prepare(args.device)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     rows = []
     with open(args.out, "w") as f:
         for det in ((0,) if args.after_phases else (0, 1)):
-            for i in range(args.runs):
-                t0 = time.perf_counter()
-                proc = subprocess.run([sys.executable, os.path.abspath(__file__), "one",
-                                       "--deterministic", str(det), "--device", args.device]
-                                      + (["--after-phases"] if args.after_phases else []),
-                                      cwd=ROOT,
-                                      capture_output=True, text=True, timeout=900)
-                line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else "{}"
-                if proc.returncode != 0:
-                    line = json.dumps({"deterministic": bool(det), "error": proc.stderr[-2000:]})
-                row = json.loads(line)
-                row["run"], row["seconds"] = i, time.perf_counter() - t0
-                rows.append(row)
-                f.write(json.dumps(row) + "\n")
-                f.flush()
-                print(f"run {i} deterministic={det}: err {row.get('err')} objf card "
-                      f"{row.get('objf_card')} kernels {row.get('kernels_sha1')} "
-                      f"({row['seconds']:.1f} s)", flush=True)
+            for cap in captures:
+                for i in range(args.runs):
+                    t0 = time.perf_counter()
+                    proc = subprocess.run(
+                        [sys.executable, os.path.abspath(__file__), "one", "--deterministic",
+                         str(det), "--device", args.device, "--captures", cap, "--work", WORK]
+                        + (["--after-phases"] if args.after_phases else []),
+                        cwd=ROOT, capture_output=True, text=True, timeout=900)
+                    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else "{}"
+                    if proc.returncode != 0:
+                        line = json.dumps({"deterministic": bool(det), "capture": cap,
+                                           "error": proc.stderr[-2000:]})
+                    row = json.loads(line)
+                    row["run"], row["seconds"] = i, time.perf_counter() - t0
+                    rows.append(row)
+                    f.write(json.dumps(row) + "\n")
+                    f.flush()
+                    print(f"run {i} deterministic={det} capture={cap}: err {row.get('err')} "
+                          f"objf card {row.get('objf_card')} kernels {row.get('kernels_sha1')} "
+                          f"({row['seconds']:.1f} s)", flush=True)
     for det in (False, True):
-        done = [r for r in rows if r.get("deterministic") == det and "err" in r]
-        failed = sum(1 for r in rows if r.get("deterministic") == det and "error" in r)
-        errs = [r["err"] for r in done]
-        over = sum(r["err"] > r["tol"] for r in done)
-        sets = sorted({r["kernels_sha1"] for r in done})
-        span = f"err min {min(errs):.4e} max {max(errs):.4e}, " if errs else ""
-        print(f"deterministic={det}: {len(done)} runs ({failed} failed to run), {span}{over} "
-              f"over the limit; kernel sets {sets}", flush=True)
+        for cap in captures:
+            mine = [r for r in rows if r.get("deterministic") == det and r.get("capture") == cap]
+            done = [r for r in mine if "err" in r]
+            errs = [r["err"] for r in done]
+            over = sum(r["err"] > r["tol"] for r in done)
+            sets = sorted({r["kernels_sha1"] for r in done})
+            span = f"err min {min(errs):.4e} max {max(errs):.4e}, " if errs else ""
+            print(f"deterministic={det} capture={cap}: {len(done)} runs "
+                  f"({len(mine) - len(done)} failed to run), {span}{over} over the limit; "
+                  f"kernel sets {sets}", flush=True)
     return 0
 
 
