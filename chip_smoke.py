@@ -148,8 +148,9 @@ non-zero:
      parameter moved, a 256 x 256 block of the trial matrix against float64)
      raise on a miss; its JSON line, bench.py's keys and the card, is printed
      on a line of its own, and the MFCC's launches are counted around it.
-     Wall seconds against a 60 s budget.  The training steps run as captured
-     CUDA graphs (the replay count is held > 0); each one's eager median
+     Wall seconds against a 60 s budget.  Every stage runs as captured CUDA
+     graphs (the training steps, the extraction chain, the scoring; the
+     inference replay count is held > 0); each one's eager median
      (capture=False) is printed beside it.
  16. the captured training step (`train.graphs`), run before phase 15: a.
      20 captured steps against 20 eager ones (capture=False) from the same
@@ -169,6 +170,27 @@ non-zero:
      the captures, replays, live graphs and peak memory.  Wall seconds
      against a 60 s budget.  Phases 9 and 11c print and hold their replay
      counts (> 0) and peak memory: the drivers train through graphs.
+ 17. the compiled serving path (`sepi_tpu_torch.graphs.CallGraphs`), run
+     after phase 16, every graph against capture=False under
+     cudnn.deterministic: a. EmbeddingExtractor over a corpus whose chunks
+     fill every bucket of the ladder (25 ... 10000 frames), the full-width
+     V2 in fp32 and bf16, a capturing and a replayed pass bit-equal; new
+     weights by load_state_dict (the graphs kept, no capture), then the
+     model moved onto new storage (a capture per bucket), and a planted
+     stale replay (a graph bound to the replaced weights) that must
+     differ; b. the frontend chain (MFCC -> VAD -> [deltas] -> CMVN),
+     dithered, undithered, with the v1 deltas and on the stepwise route:
+     features, voiced masks and frame counts equal, every MFCC batch of the
+     captured runs (the replayed ones too) within 2e-3 of the plain
+     version, the launches counted through the replays; c. the eval step,
+     fp32 and bf16; d. the bench's scoring (4096 x 4096 x 150) and
+     extraction chain (16 x 100 s) programs; e. eager against captured per
+     call at the 32 x 25, 32 x 400 and 32 x 10000 buckets and the bench
+     chain (torch.profiler): device ms, idle share, device ops and host
+     launch calls; captures, replays, live graphs, peak memory.  Wall
+     seconds against a 60 s budget.  Phases 4, 9 and 15 print and hold
+     their inference replays (> 0): extraction and the frontend run as
+     graph replays.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}, whose count is the one card the
 run used (the script shows its ranks that card alone).  Without a CUDA device the
@@ -410,6 +432,7 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     import numpy as np
     import torch
 
+    from sepi_tpu_torch import graphs
     from sepi_tpu_torch.config import FrontendConfig
     from sepi_tpu_torch.data import make_synthetic_corpus
     from sepi_tpu_torch.models import V2_XVECTOR
@@ -426,6 +449,7 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     enroll = {s: us[:1] for s, us in spk2utt.items()}
 
     mfcc_cuda.mfcc_fused.launches = 0
+    graphs.reset_counts()
     t0 = time.perf_counter()
     nosil = prepare_features_nosil(corpus.audio, frontend, device=device)
     embs = extract_and_score(model, None, nosil, min_frames=model_cfg.min_frames,
@@ -433,6 +457,10 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     result, _ = backend_eval(embs, corpus.dataset, corpus.trials, enroll)
     secs = time.perf_counter() - t0
     launches = mfcc_cuda.mfcc_fused.launches
+    problems = []
+    graph_counts = _graph_counts(device, "the main path", problems, inference=True)
+    if problems:
+        raise AssertionError("phase 4: " + "; ".join(problems))
 
     if len(embs) != len(corpus.audio):
         raise AssertionError(f"{len(embs)} embeddings for {len(corpus.audio)} utterances")
@@ -467,9 +495,10 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
         f"{emb.shape} finite, EER {r['eer_pct']:.3f}% minDCF08 {r['min_dcf08']:.4f} "
         f"minDCF10 {r['min_dcf10_x1000'] / 1000:.4f} ({r['num_target']} target / "
         f"{r['num_nontarget']} nontarget trials; random weights) in {secs:.2f} s; "
-        f"mfcc_fused launches {launches}; vs CPU on {len(same)}/{len(sub)} utts: "
-        f"features max abs {feat_err:.2e}, embeddings max rel {emb_rel:.2e}")
-    return {"launches": launches}
+        f"mfcc_fused launches {launches}; {_fmt_graphs(graph_counts)}; vs CPU on "
+        f"{len(same)}/{len(sub)} utts: features max abs {feat_err:.2e}, embeddings max rel "
+        f"{emb_rel:.2e}")
+    return {"launches": launches, "graphs": graph_counts}
 
 
 def phase_throughput(env, device="cuda", batch=BENCH_B, secs=BENCH_SECS, iters=5):
@@ -646,8 +675,10 @@ def phase_viterbi(env, device="cuda"):
 
 
 class _MfccCapture:
-    """Every `FeatureExtractor.mfcc` batch of a block, kept with its output;
-    `check()` then holds each against the plain version."""
+    """Every `FeatureExtractor.mfcc` batch of a block, kept with its output,
+    whether it ran eagerly or as a replay of a captured frontend (kept
+    after each replay, `graphs.on_replay`); `check()` then holds each
+    against the plain version."""
 
     def __init__(self):
         from sepi_tpu_torch.ops.features import FeatureExtractor
@@ -655,13 +686,23 @@ class _MfccCapture:
         self.cls, self.batches = FeatureExtractor, []
 
     def __enter__(self):
-        self.orig = self.cls.mfcc
+        from sepi_tpu_torch import graphs
+
+        self.orig, self.replayed = self.cls.mfcc, 0
         cap = self
 
         def mfcc(fe, samples, lengths=None, max_frames=None, utt_seeds=None):
             feats, mask = cap.orig(fe, samples, lengths, max_frames, utt_seeds)
-            cap.batches.append((fe, samples, lengths, max_frames, utt_seeds, feats.clone(),
-                                mask.clone()))
+            args = (samples, lengths, max_frames, utt_seeds, feats, mask)
+
+            def keep(replay=False):
+                # a captured batch's tensors are the graph's: copied after each replay
+                cap.batches.append((fe,) + tuple(x.clone() if hasattr(x, "clone") else x
+                                                 for x in args))
+                cap.replayed += replay
+
+            if not graphs.on_replay(lambda: keep(replay=True)):
+                keep()
             return feats, mask
 
         self.cls.mfcc = mfcc
@@ -1602,24 +1643,30 @@ class _Tee:
         self.out.flush()
 
 
-def _graph_counts(device, what, problems) -> dict:
-    """The captured steps' counts since `graphs.reset_counts()`, the graphs
-    live now and the peak memory since the last reset; a path on the card
-    that replayed no graph is a problem."""
+def _graph_counts(device, what, problems, inference=False) -> dict:
+    """The graphs' counts since `graphs.reset_counts()` (every graph, and
+    the inference graphs alone under ``infer_``), the graphs live now and
+    the peak memory since the last reset; a path on the card that replayed
+    no graph (with ``inference``, no inference graph) is a problem."""
     import torch
 
-    from sepi_tpu_torch.train import graphs
+    from sepi_tpu_torch import graphs
 
     out = dict(graphs.counts, live=graphs.live_graphs(),
+               infer_captures=graphs.call_counts["captures"],
+               infer_replays=graphs.call_counts["replays"],
                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if device != "cpu" else 0.0)
     if device != "cpu" and out["replays"] <= 0:
-        problems.append(f"{what} replayed no captured step: {out}")
+        problems.append(f"{what} replayed no captured graph: {out}")
+    if device != "cpu" and inference and out["infer_replays"] <= 0:
+        problems.append(f"{what} replayed no inference graph: {out}")
     return out
 
 
 def _fmt_graphs(c) -> str:
-    return (f"captured steps: {c['captures']} captures, {c['replays']} replays, {c['live']} "
-            f"graphs live after, peak memory {c['peak_gb']:.2f} GB")
+    return (f"graphs: {c['captures']} captures, {c['replays']} replays ({c['infer_captures']} "
+            f"and {c['infer_replays']} of them inference), {c['live']} graphs live after, "
+            f"peak memory {c['peak_gb']:.2f} GB")
 
 
 def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, adapt=P9_ADAPT,
@@ -1740,7 +1787,7 @@ def phase_driver_path(env, device="cuda", train=P9_TRAIN, evaluation=P9_EVAL, ad
     out_text = "".join(tee.lines)
 
     problems = []
-    graph_counts = _graph_counts(device, "the driver path", problems)
+    graph_counts = _graph_counts(device, "the driver path", problems, inference=True)
     if device != "cpu" and min(launches.values()) <= 0:
         problems.append(f"the driver path did not launch every kernel: {launches}")
     if out_text.count("[s5_feats_ali] running") != 1 or out_text.count(
@@ -4042,6 +4089,22 @@ def _p16_trainer(chain, state, shapes, v2_cfg, k=4):
     return bad, len(stream)
 
 
+def time_ms_host(fn, iters=20, warmup=2) -> float:
+    """Median host-clock ms of ``fn()`` followed by a synchronize."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def _launch_profile(fn, n=P16_PROFILED):
     """torch.profiler over ``n`` calls of ``fn`` after a warm-up call:
     device busy and wall ms, device ops and host launch/copy calls, each
@@ -4210,6 +4273,347 @@ def phase_graphs(env, device="cuda", v2_cfg=None, shapes=None, steps=P16_STEPS,
             "peak_gb": peak_gb, "wall": total}
 
 
+P17_BUDGET_S = 60.0  # phase 17's wall, reported against this budget
+P17_BUCKETS = (25, 400, 10000)  # 17e: the smallest, a middle and the largest bucket
+P17_FRONTEND_BATCH = 16  # 17b: prepare_features_*'s batch_size
+
+
+def _p17_features(ladder, feat_dim, seed=17):
+    """utt -> (T, feat_dim) features whose chunks fill every bucket of
+    ``ladder`` (each bucket's own length and one just above the bucket
+    below it), 36 more of the second bucket's length (two batches of 32:
+    a replay within one pass), and one utterance of three chunks."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths, prev = [], 0
+    for b in ladder:
+        lengths += [b, max(prev + 1, ladder[0])]
+        prev = b
+    lengths += [ladder[1]] * 36 + [2 * ladder[-1] + 3 * ladder[0]]
+    return {f"p17u{i:03d}": rng.standard_normal((n, feat_dim)).astype(np.float32)
+            for i, n in enumerate(lengths)}
+
+
+def _p17_diff(got, want) -> list:
+    """The utterances whose embeddings are not equal."""
+    import numpy as np
+
+    return sorted(u for u in want if u not in got or not np.array_equal(got[u], want[u]))
+
+
+def _p17_extraction(device, v2_cfg, ecfg, feats):
+    """17a: `EmbeddingExtractor` captured (the default) against
+    ``capture=False`` over every bucket, fp32 and bf16, a capturing pass and
+    a replayed one; then (fp32) new weights by `load_state_dict` (no new
+    capture), the model moved onto new storage and loaded again (a capture
+    per bucket), and the planted stale replay: a graph of the old storage
+    replayed, which must differ.  Returns (lines, problems, the fp32
+    extractors, the planted reading)."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch import graphs
+    from sepi_tpu_torch.extract import EmbeddingExtractor, bucket_ladder
+    from sepi_tpu_torch.models import XVector
+
+    mf = v2_cfg.min_frames
+    ladder = bucket_ladder(ecfg, mf)
+    fp32 = random_xvector(v2_cfg, 17, device)
+    bf16 = XVector(v2_cfg, dtype="bfloat16")
+    bf16.load_state_dict(fp32.state_dict())
+    lines, bad, pairs = [], [], {}
+    for label, model in (("fp32", fp32), ("bf16", bf16.to(device).eval())):
+        cap = EmbeddingExtractor(model, ecfg, min_frames=mf, device=device)
+        eag = EmbeddingExtractor(model, ecfg, min_frames=mf, device=device, capture=False)
+        pairs[label] = (cap, eag)
+        want = eag.extract_utterances(feats)
+        for run in ("capturing", "replayed"):
+            d = _p17_diff(cap.extract_utterances(feats), want)
+            bad += [f"17a {label} {run} pass: {len(d)} embeddings differ, e.g. {d[:3]}"] if d else []
+        if len(cap.graphs.graphs) != len(ladder):
+            bad.append(f"17a {label}: {len(cap.graphs.graphs)} graphs for {len(ladder)} buckets")
+        lines.append(f"{label} {len(want)} utts over buckets {ladder[0]}..{ladder[-1]}")
+    cap, eag = pairs["fp32"]
+    steps = {}
+    before = graphs.call_counts["captures"]
+    fp32.load_state_dict(random_xvector(v2_cfg, 18, "cpu").state_dict())
+    d = _p17_diff(cap.extract_utterances(feats), eag.extract_utterances(feats))
+    steps["load_state_dict"] = (d, graphs.call_counts["captures"] - before)
+    mid = ladder[len(ladder) // 2]
+    shape = (ecfg.batch_size, mid, v2_cfg.feat_dim)
+    # a graph's key: ((static, (the model's, the features', the mask's signature), flags), ident)
+    old = next(g for key, g in cap.graphs.graphs.items() if key[0][1][1][0] == shape)
+    fp32.to(torch.float64).to(torch.float32)  # new storage for every floating tensor
+    fp32.load_state_dict(random_xvector(v2_cfg, 19, "cpu").state_dict())
+    before = graphs.call_counts["captures"]
+    d = _p17_diff(cap.extract_utterances(feats), eag.extract_utterances(feats))
+    steps["moved"] = (d, graphs.call_counts["captures"] - before)
+    for what, (d, n) in steps.items():
+        want_n = 0 if what == "load_state_dict" else len(ladder)
+        if d or n != want_n:
+            bad.append(f"17a {what}: {len(d)} embeddings differ (e.g. {d[:3]}), {n} captures "
+                       f"(expected {want_n})")
+    if len(cap.graphs.graphs) != len(ladder):
+        bad.append(f"17a moved: {len(cap.graphs.graphs)} graphs live for {len(ladder)} buckets")
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(shape).astype(np.float32))
+    m = torch.ones(shape[:2], dtype=torch.bool)
+    stale = old.run([fp32, x, m])  # the planted fault: a graph bound to the replaced weights
+    fresh = eag.graphs(fp32, x, m)
+    rows = int((stale != fresh).any(-1).sum())
+    planted = f"{rows} of {ecfg.batch_size} embeddings differ"
+    if rows == 0:
+        bad.append("17a: the planted stale replay matched the eager forward: the check cannot "
+                   "fail")
+    lines.append(", ".join(f"{k} {'equal' if not d else 'DIFFERS'} ({n} captures)"
+                           for k, (d, n) in steps.items()) + f", planted stale replay {planted}")
+    return lines, bad, pairs["fp32"], planted
+
+
+def _p17_audio(n_same=64, n_odd=8, seed=17):
+    """Amplitude-modulated noise: ``n_same`` utterances of 3.0-3.2 s (one
+    padded shape: a capture, then replays) and ``n_odd`` of 1-6 s."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = list(rng.integers(int(3.0 * SR), int(3.2 * SR), n_same))
+    lengths += list(rng.integers(SR, 6 * SR, n_odd))
+    return {f"p17a{i:03d}": (rng.standard_normal(n) * 1000.0
+                             * (1.2 + np.sin(np.arange(n) / 700.0))).astype(np.float32)
+            for i, n in enumerate(lengths)}
+
+
+def _p17_frontend(device, audio, batch=P17_FRONTEND_BATCH):
+    """17b: `_frontend_batches` (MFCC -> VAD -> [deltas] -> CMVN) captured
+    against ``capture=False``: dithered, undithered, with the v1 deltas and
+    on the stepwise route; features, voiced masks and frame counts equal.
+    The captured runs' MFCC batches, replayed ones included, held against
+    the plain version; the MFCC launches counted through the replays.
+    Returns (lines, problems, launches, max abs err)."""
+    import numpy as np
+
+    from sepi_tpu_torch.config import MFCC_SRE_IVECTOR, CmvnConfig, FrontendConfig, VadConfig
+    from sepi_tpu_torch.ops import FeatureExtractor, mfcc_cuda
+    from sepi_tpu_torch.ops.deltas import add_deltas
+    from sepi_tpu_torch.recipes.pipeline import _frontend_batches
+
+    cases = (("dithered", FrontendConfig(), "auto", 5, None),
+             ("undithered", FrontendConfig(dither=0.0), "auto", None, None),
+             ("deltas (v1)", MFCC_SRE_IVECTOR, "auto", None,
+              lambda f, m: add_deltas(f, m, order=2)),
+             ("stepwise dithered", FrontendConfig(), "slices", 5, None))
+    lines, bad, launches, worst = [], [], 0, 0.0
+    for label, cfg, mode, key, transform in cases:
+        fe = FeatureExtractor(cfg, device, spectral_mode=mode)
+
+        def run(capture):
+            return list(_frontend_batches(audio, fe, VadConfig(), CmvnConfig(), key, batch,
+                                          transform=transform, capture=capture))
+
+        mfcc_cuda.mfcc_fused.launches = 0
+        with _MfccCapture() as cap:
+            got = run(None)
+        n = mfcc_cuda.mfcc_fused.launches
+        want = run(False)
+        diff = [i for i, (g, w) in enumerate(zip(got, want))
+                if g[0] != w[0] or not all(np.array_equal(a, b) for a, b in zip(g[1:], w[1:]))]
+        if diff or len(got) != len(want):
+            bad.append(f"17b {label}: batches {diff[:4]} of {len(want)} differ")
+        expect = len(got) if fe.fused and device != "cpu" else 0
+        if n != expect:
+            bad.append(f"17b {label}: {n} MFCC launches for {len(got)} batches (expected {expect})")
+        launches += n
+        held = ""
+        if fe.fused:
+            replayed, kept = cap.replayed, len(cap.batches)
+            err = max((e for _, e in cap.check(bad, f"17b {label}").values()), default=0.0)
+            worst = max(worst, err)
+            if kept != len(got) or replayed <= 0:
+                bad.append(f"17b {label}: {kept} MFCC batches kept ({replayed} replayed) for "
+                           f"{len(got)} batches")
+            held = f", MFCC {kept} batches ({replayed} replayed) vs plain max abs {err:.3e}"
+        lines.append(f"{label} {'equal' if not diff else 'DIFFERS'} ({len(got)} batches, "
+                     f"{len({g[1].shape for g in got})} shapes, {n} launches{held})")
+    return lines, bad, launches, worst
+
+
+def _p17_eval(device, v2_cfg, shapes):
+    """17c: `make_eval_step` captured (the default) against
+    ``capture=False``, fp32 and bf16, two batch shapes each called twice:
+    objf and accuracy equal.  Returns (lines, problems)."""
+    import torch
+
+    from sepi_tpu_torch.train import make_eval_step
+
+    lines, bad = [], []
+    b, t = shapes.chunks, shapes.chunk_frames
+    batches = (_p16_batches(device, 2, b, t, v2_cfg.num_speakers, v2_cfg.feat_dim, seed=24)
+               + _p16_batches(device, 2, b, t * 3 // 2, v2_cfg.num_speakers, v2_cfg.feat_dim,
+                              seed=25))
+    for dtype in ("float32", "bfloat16"):
+        _, state = _train_state(v2_cfg, device, dtype=dtype)
+        ev, ev_e = make_eval_step(), make_eval_step(capture=False)
+        diff = []
+        for i, (f, lab) in enumerate(batches):
+            got, want = ev(state, f, lab), ev_e(state, f, lab)
+            diff += [f"{i} {k}" for k in want if not torch.equal(got[k], want[k])]
+        bad += [f"17c {dtype}: {d}" for d in diff]
+        lines.append(f"{dtype} {'equal' if not diff else 'DIFFERS'} ({len(batches)} batches, "
+                     f"{len(ev.graphs.graphs)} graphs)")
+    return lines, bad
+
+
+def _p17_bench_programs(device, shapes):
+    """17d: the bench's two programs captured against the same functions
+    called eagerly, three calls each: the scoring at its trial matrix and
+    the extraction chain at its batch.  Returns (lines, problems, the
+    chain's inputs for 17e)."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch import bench
+    from sepi_tpu_torch.config import FrontendConfig
+    from sepi_tpu_torch.graphs import CallGraphs
+    from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.ops.framing import num_frames
+
+    lines, bad = [], []
+    dim, m, n = shapes.plda_dim, shapes.plda_models, shapes.plda_tests
+    rng = np.random.default_rng(26)
+    q = np.linalg.qr(rng.normal(size=(dim, dim)))[0]
+    inputs = [torch.from_numpy(np.asarray(a, np.float32)).to(device)
+              for a in (rng.normal(size=dim), q, rng.uniform(0.1, 5.0, dim),
+                        rng.normal(size=(m, dim)), rng.normal(size=(n, dim)))]
+    scoring = bench.plda_scoring(torch.device(device))
+    program = CallGraphs(scoring, device=device)
+    diff = [i for i in range(3) if not torch.equal(program(*inputs), scoring(*inputs))]
+    bad += [f"17d scoring call {i} differs" for i in diff]
+    lines.append(f"scoring {m} x {n} x {dim} {'equal' if not diff else 'DIFFERS'}")
+
+    cfg = FrontendConfig()
+    samples = int(SR * shapes.secs)
+    t_max = int(num_frames(samples, cfg))
+    model = random_xvector(shapes.xvector, 1, device)
+    x, lens, seeds = _mfcc_inputs(shapes.utts, [samples] * shapes.utts, samples, 2, device)
+    chain = bench.extraction_chain(FeatureExtractor(cfg, device), t_max)
+    program = CallGraphs(chain)
+    diff = []
+    with torch.no_grad():
+        for i in range(3):
+            got, want = program(model, x, lens, seeds), chain(model, x, lens, seeds)
+            diff += [f"{i}.{j}" for j, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    bad += [f"17d extraction chain output {d} differs" for d in diff]
+    lines.append(f"extraction chain {shapes.utts} x {shapes.secs:.0f} s "
+                 f"{'equal' if not diff else 'DIFFERS'}")
+    return lines, bad, (model, chain, program, x, lens, seeds)
+
+
+def phase_serving(env, device="cuda", v2_cfg=None, ecfg=None, shapes=None, audio=None,
+                  frontend_batch=P17_FRONTEND_BATCH, buckets=P17_BUCKETS):
+    """Phase 17: the compiled serving path (`graphs.CallGraphs`) against the
+    eager one (``capture=False``) under deterministic cuDNN: a. the
+    extractor over every bucket, fp32 and bf16, weights loaded in place and
+    moved, and a planted stale replay that must differ; b. the frontend
+    chain, dithered, undithered, with deltas and stepwise; c. the eval
+    step; d. the bench's scoring and extraction programs; e. (on the card)
+    eager against captured per call at ``buckets`` and the bench chain:
+    device ms, device ops and host launch calls (torch.profiler), the
+    host-clock ms without the tracer, and the idle share against each.
+    ``v2_cfg``, ``ecfg``, ``shapes``, ``audio`` and
+    ``frontend_batch`` narrow it for a CPU rehearsal."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch import bench, graphs
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.device import fp32_math
+    from sepi_tpu_torch.models import V2_XVECTOR
+
+    shapes = shapes or bench.Shapes()
+    v2_cfg = v2_cfg or dataclasses.replace(V2_XVECTOR, num_speakers=CV_SPEAKERS)
+    ecfg = ecfg or ExtractConfig()
+    t0, wall, problems, lines = time.perf_counter(), {}, [], {}
+    graphs.reset_counts()
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    with fp32_math():
+        cudnn.deterministic = True
+        try:
+            from sepi_tpu_torch.extract import bucket_ladder
+
+            feats = _p17_features(bucket_ladder(ecfg, v2_cfg.min_frames), v2_cfg.feat_dim)
+            lines["17a"], bad, (cap, eag), planted = _p17_extraction(device, v2_cfg, ecfg, feats)
+            problems += bad
+            wall["17a"] = time.perf_counter() - t0
+            t = time.perf_counter()
+            lines["17b"], bad, launches, mfcc_err = _p17_frontend(device, audio or _p17_audio(),
+                                                           frontend_batch)
+            problems += bad
+            wall["17b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            lines["17c"], bad = _p17_eval(device, v2_cfg, shapes)
+            problems += bad
+            wall["17c"] = time.perf_counter() - t
+            t = time.perf_counter()
+            lines["17d"], bad, chain_run = _p17_bench_programs(device, shapes)
+            problems += bad
+            wall["17d"] = time.perf_counter() - t
+        finally:
+            cudnn.deterministic = deterministic
+
+        t = time.perf_counter()
+        profiles = {}
+        if device != "cpu":
+            rng = np.random.default_rng(27)
+            bs = ecfg.batch_size
+            model, chain, program, x, lens, seeds = chain_run
+            calls = {}
+            for b in buckets:
+                f = rng.standard_normal((bs, b, v2_cfg.feat_dim)).astype(np.float32)
+                m = np.ones((bs, b), bool)
+                calls[f"bucket {bs} x {b}"] = (lambda f=f, m=m: eag._embed(f, m),
+                                               lambda f=f, m=m: cap._embed(f, m))
+            calls[f"bench chain {shapes.utts} x {shapes.secs:.0f} s"] = (
+                lambda: chain(model, x, lens, seeds), lambda: program(model, x, lens, seeds))
+            with torch.no_grad():
+                for label, fns in calls.items():
+                    for mode, fn in zip(("eager", "captured"), fns):
+                        p = profiles[(label, mode)] = _launch_profile(fn)
+                        # the tracer's own cost a call is in p["wall_ms"]: the host
+                        # clock without it, and the idle share against that
+                        p["host_ms"] = time_ms_host(fn)
+                        p["host_idle"] = 1 - p["busy_ms"] / p["host_ms"]
+        wall["17e"] = time.perf_counter() - t
+    counts = dict(graphs.counts, infer=dict(graphs.call_counts), live=graphs.live_graphs())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device != "cpu" else 0.0
+    total = time.perf_counter() - t0
+    if device != "cpu" and counts["infer"]["replays"] <= 0:
+        problems.append(f"phase 17 replayed no inference graph: {counts}")
+    where = env["smi"] if env else device
+    prof = "; ".join(
+        f"{label} {mode}: {p['busy_ms']:.3f} device ms a call, host clock {p['host_ms']:.3f} "
+        f"ms (idle {100 * p['host_idle']:.1f}%), traced {p['wall_ms']:.3f} ms (idle "
+        f"{100 * p['idle']:.1f}%), {p['device_ops']:.1f} device ops, {p['host_calls']:.1f} host "
+        f"launch/copy calls ({p['graph_launches']:.1f} graph launches)"
+        for (label, mode), p in profiles.items()) or "not measured (CPU)"
+    log(f"phase 17 serving graphs on {where}: captured vs eager (capture=False), "
+        f"cudnn.deterministic, TF32 off: "
+        + "; ".join(f"{k} " + ", ".join(v) for k, v in lines.items())
+        + f"; 17e torch.profiler over {P16_PROFILED} calls after one: {prof}; captures "
+        f"{counts['captures']} ({counts['infer']['captures']} inference), replays "
+        f"{counts['replays']} ({counts['infer']['replays']} inference), live graphs "
+        f"{counts['live']}, peak memory {peak_gb:.2f} GB; wall "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in wall.items())
+        + f"; {total:.1f} s against its {P17_BUDGET_S:.0f} s budget "
+        f"({'within' if total <= P17_BUDGET_S else 'over'})")
+    if problems:
+        raise AssertionError("phase 17: " + "; ".join(problems[:12]))
+    return {"launches": launches, "mfcc_err": mfcc_err, "planted": planted, "counts": counts,
+            "profiles": profiles, "peak_gb": peak_gb, "wall": total}
+
+
 P15_BUDGET_S = 60.0  # phase 15's wall, reported against this budget
 P15_REPEATS = 10  # timed runs per measurement
 
@@ -4220,9 +4624,8 @@ def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
     ``shapes`` narrows it for a CPU rehearsal (``device="cpu"``)."""
     import torch
 
-    from sepi_tpu_torch import bench
+    from sepi_tpu_torch import bench, graphs
     from sepi_tpu_torch.ops import mfcc_cuda
-    from sepi_tpu_torch.train import graphs
 
     shapes = shapes or bench.Shapes()
     t0 = time.perf_counter()
@@ -4233,12 +4636,13 @@ def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
     line, runs = bench.main(device=device, repeats=repeats, shapes=shapes)
     launches = mfcc_cuda.mfcc_fused.launches
     problems = []
-    graph_counts = _graph_counts(device, "the bench", problems)
+    graph_counts = _graph_counts(device, "the bench", problems, inference=True)
     if problems:
         raise AssertionError("phase 15: " + "; ".join(problems))
     wall = time.perf_counter() - t0
-    # the checked call, the warm-ups and the timed runs, one launch each
-    calls = 1 + shapes.warmup + repeats * shapes.extract_iters
+    # the capturing call, the checked replay, then the captured and the eager
+    # warm-ups and timed runs, one launch each
+    calls = runs["extraction"].calls
     if device != "cpu" and launches != calls:
         raise AssertionError(f"phase 15: {launches} MFCC launches, {calls} extraction calls")
     ext, tr, pl = runs["extraction"], runs["training"], runs["plda"]
@@ -4255,8 +4659,10 @@ def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
         f"finite, last objf " + ", ".join(f"{k} {v:.4f}" for k, v in tr.objf.items())
         + f", trial block vs float64 {pl.block_err:.3e} (limit {bench.PLDA_RTOL}); MFCC "
         f"launches {launches}; {_fmt_graphs(graph_counts)}; eager (capture=False) medians "
+        f"extraction {ext.eager_timing.median:.3f} ms, "
         + ", ".join(f"{n} {t.median / per:.3f} ms" for (n, t), per in zip(
             tr.eager_timings.items(), (1, shapes.superstep, 1, shapes.pair_superstep)))
+        + f", PLDA {pl.eager_timing.median:.3f} ms"
         + f"; {wall:.1f} s against its {P15_BUDGET_S:.0f} s budget "
         f"({'within' if wall <= P15_BUDGET_S else 'over'})")
     return {"launches": launches, "mfcc_err": ext.mfcc_err, "line": line, "wall": wall,
@@ -4333,6 +4739,7 @@ def main() -> int:
     mesh_run = phase_mesh(env, drv)
     parity = phase_parity(env)
     phase_graphs(env)
+    serving = phase_serving(env)
     bench_run = phase_bench(env)
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
@@ -4348,12 +4755,13 @@ def main() -> int:
     mfcc["launches_mesh_path"] = mesh_run["launches"]
     mfcc["launches_parity_path"] = parity["launches"]
     mfcc["launches_bench_path"] = bench_run["launches"]
+    mfcc["launches_serving_graphs"] = serving["launches"]
     mfcc["max_abs_err_v1_path"] = {f"C={c}": e for c, (_, e) in sorted(
         {**v1["mfcc"], **{c: (n, max(e, v1["mfcc"].get(c, (0, 0.0))[1]))
                           for c, (n, e) in dnn["mfcc"].items()}}.items())}
     mfcc["max_abs_err"] = max([mfcc["max_abs_err"], s5["mfcc_err"], drv["mfcc_err"],
                                bf16["mfcc_err"], cli_run["mfcc_err"], mesh_run["mfcc_err"],
-                               parity["mfcc_err"], bench_run["mfcc_err"]]
+                               parity["mfcc_err"], bench_run["mfcc_err"], serving["mfcc_err"]]
                               + [e for _, e in v1["mfcc"].values()]
                               + [e for _, e in dnn["mfcc"].values()])
     timing = s5["viterbi_timing"]

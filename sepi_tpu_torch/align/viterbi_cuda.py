@@ -27,6 +27,8 @@ import ctypes
 
 import torch
 
+from ..graphs import count_launch
+
 _NEG = -1e30
 MAX_STATES = 8192  # the kernel's 1024 threads x 8 states each
 
@@ -105,7 +107,7 @@ def viterbi_batch(state_emit: torch.Tensor, t_len: torch.Tensor, trans: torch.Te
     bps = torch.empty((b, t - 1, s), dtype=torch.int8, device=dev)
     delta = torch.empty((b, s), dtype=torch.float32, device=dev)
     _launch(state_emit, t_len, trans, skip, bps, delta)
-    viterbi_batch.launches += 1
+    count_launch(viterbi_batch)
     return bps, delta
 
 

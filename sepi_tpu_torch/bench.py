@@ -20,20 +20,24 @@ work at the same shapes, through the port's own entry points.
 - `bench_plda_scoring`: `plda_score_matrix_device` on 4096 x 4096 trials
   of a synthetic, well-conditioned 150-dim `Plda`.
 
-How it times: the port as users run it.  The training steps are the
-step factories' default on the card, captured CUDA graphs
-(`train.graphs`, the counterpart of `bench.py`'s jitted step and scan),
-captured in the first warm-up call as `bench.py`'s first call compiles;
-the same steps with ``capture=False`` are timed too and go to standard
-error only.  Extraction and scoring run eagerly (no `torch.compile`).
-After ``Shapes.warmup`` calls, each of ``repeats`` runs times its stage's
-calls back to back between two `torch.cuda.synchronize()` calls on the
-host clock; the line reports the median run, and the quartiles and the
-number of runs go to standard error.
+How it times: the port as users run it, every stage a captured CUDA
+graph on the card, as `bench.py` jits each.  The training steps are the
+step factories' default (`train.graphs`, the counterpart of `bench.py`'s
+jitted step and scan), captured in the first warm-up call as `bench.py`'s
+first call compiles; the extraction chain and the trial scoring are each
+one `graphs.CallGraphs` program, captured in its first call.  The same
+work run eagerly (``capture=False`` steps, the chain and the scoring
+called directly) is timed too and goes to standard error only.  No
+`torch.compile`.  After ``Shapes.warmup`` calls, each of ``repeats``
+runs times its stage's calls back to back between two
+`torch.cuda.synchronize()` calls on the host clock; the line reports the
+median run, and the quartiles and the number of runs go to standard
+error.
 
-Each stage holds what it timed before it reports a number, and a check
-that misses its limit raises `BenchCheckFailed`: the MFCC of the bench
-batch against `mfcc_fused_reference` within 2e-3, the embeddings finite
+Each stage holds what it timed before it reports a number (extraction
+and scoring on a replay of their graphs), and a check that misses its
+limit raises `BenchCheckFailed`: the MFCC of the bench batch against
+`mfcc_fused_reference` within 2e-3, the embeddings finite
 and (16, 512), every training objective finite and every parameter
 moved, and a 256 x 256 block of the trial matrix against the float64 host
 scores.  A stage that raises ends the run with a non-zero exit, after the
@@ -172,13 +176,37 @@ class ExtractionRun:
     mfcc_err: float  # max |FeatureExtractor.mfcc - mfcc_fused_reference| of the checked call
     timing: Timing
     audio_s_per_s: float
+    eager_timing: Timing  # the same chain called eagerly
+    calls: int  # calls of the chain, each one MFCC launch (replayed or eager)
+
+
+def extraction_chain(fe, t_max: int, vcfg: VadConfig = VadConfig(),
+                     ccfg: CmvnConfig = CmvnConfig()) -> Callable:
+    """`bench.py`'s ``extract`` as ``chain(model, samples, lengths, seeds)``:
+    ``fe.mfcc`` -> `energy_vad` -> `sliding_cmvn` -> `select_voiced_frames`
+    -> the model's ``embedding_a``; returns (embeddings, feats, mask)."""
+    from .ops import energy_vad, select_voiced_frames, sliding_cmvn
+
+    def chain(model, samples, lengths, seeds):
+        feats, mask = fe.mfcc(samples, lengths, t_max, utt_seeds=seeds)
+        voiced = energy_vad(feats[..., 0], mask, vcfg)
+        normed = sliding_cmvn(feats, mask, ccfg)
+        sel, sel_mask = select_voiced_frames(normed, voiced)
+        return model(sel, frame_mask=sel_mask)["embedding_a"], feats, mask
+
+    return chain
 
 
 def bench_extraction(rng: np.random.Generator, device: DeviceLike = "cuda",
                      shapes: Shapes = Shapes(), repeats: int = REPEATS) -> ExtractionRun:
-    """The headline: the full extraction chain, audio-seconds/s."""
+    """The headline: the full extraction chain, audio-seconds/s.  The chain
+    is one captured program (`graphs.CallGraphs`, `bench.py`'s jitted
+    ``extract``): its first call captures it, the second, a replay, is the
+    checked call, then the timed runs; the same chain called eagerly is
+    timed after them and goes to standard error."""
+    from .graphs import CallGraphs
     from .models import XVector, lecun_normal_init
-    from .ops import FeatureExtractor, energy_vad, select_voiced_frames, sliding_cmvn
+    from .ops import FeatureExtractor
     from .ops.dither import utt_seeds
     from .ops.framing import num_frames
     from .ops.mfcc_cuda import mfcc_fused_reference
@@ -190,23 +218,20 @@ def bench_extraction(rng: np.random.Generator, device: DeviceLike = "cuda",
     model = XVector(shapes.xvector)
     lecun_normal_init(model, 0)
     model = model.to(dev).eval()
-    seeds = utt_seeds([f"bench{i}" for i in range(batch)])
+    seeds = torch.from_numpy(utt_seeds([f"bench{i}" for i in range(batch)])).to(dev)
     samples_np = rng.normal(size=(batch, n)).astype(np.float32) * 3000.0
     samples = torch.from_numpy(samples_np).to(dev)
     lengths = torch.full((batch,), n, dtype=torch.int32, device=dev)
-    fe = FeatureExtractor(fcfg, device=dev)
+    chain = extraction_chain(FeatureExtractor(fcfg, device=dev), t_max, vcfg, ccfg)
+    program = CallGraphs(chain)
 
     def extract():
-        feats, mask = fe.mfcc(samples, lengths, t_max, utt_seeds=seeds)
-        voiced = energy_vad(feats[..., 0], mask, vcfg)
-        normed = sliding_cmvn(feats, mask, ccfg)
-        sel, sel_mask = select_voiced_frames(normed, voiced)
-        return model(sel, frame_mask=sel_mask)["embedding_a"], feats, mask
+        return program(model, samples, lengths, seeds)
 
     with fp32_math(), torch.no_grad():
+        extract()
         emb, feats, mask = extract()
-        want, want_mask = mfcc_fused_reference(
-            samples, lengths, fcfg, t_max, torch.from_numpy(seeds).to(dev))
+        want, want_mask = mfcc_fused_reference(samples, lengths, fcfg, t_max, seeds)
         err = float((feats - want).abs().max())
         _require(bool(torch.equal(mask, want_mask)) and err <= MFCC_TOL,
                  f"extraction: MFCC off its plain version by {err:.3e} (limit {MFCC_TOL}) "
@@ -218,11 +243,19 @@ def bench_extraction(rng: np.random.Generator, device: DeviceLike = "cuda",
         del want, feats
         timing, _ = time_calls(lambda: extract()[0], dev, shapes.extract_iters, repeats,
                                shapes.warmup)
+        eager, _ = time_calls(lambda: chain(model, samples, lengths, seeds)[0], dev,
+                              shapes.extract_iters, repeats, shapes.warmup)
     rate = batch * shapes.secs / (timing.median / 1e3)
-    _log(f"# extraction {batch}x{shapes.secs:.0f} s on {dev}: {timing.describe(unit='batch')}; "
-         f"{rate:.1f} audio-s/s; MFCC vs plain {err:.3e} (limit {MFCC_TOL}), embeddings "
-         f"{tuple(emb.shape)} finite")
-    return ExtractionRun(samples_np, model, emb, err, timing, rate)
+    _log(f"# extraction {batch}x{shapes.secs:.0f} s on {dev}, {_how(dev)}: "
+         f"{timing.describe(unit='batch')}; {rate:.1f} audio-s/s; eager: "
+         f"{eager.describe(unit='batch')}; MFCC vs plain {err:.3e} (limit {MFCC_TOL}), "
+         f"embeddings {tuple(emb.shape)} finite")
+    calls = 2 + 2 * (shapes.warmup + repeats * shapes.extract_iters)
+    return ExtractionRun(samples_np, model, emb, err, timing, rate, eager, calls)
+
+
+def _how(dev: torch.device) -> str:
+    return "captured" if dev.type == "cuda" else "eager (CPU)"
 
 
 # -------------------------------------------------------------------- training
@@ -366,7 +399,7 @@ def bench_training(rng: np.random.Generator, extra: dict, device: DeviceLike = "
     extra["v2_superstep16_audio_s_per_s"] = round(frames_s / (dt_sup / 1e3), 1)
     extra["v5_multitask_ms_per_step_pair"] = round(dt_v5, 3)
     extra["v5_superstep8_ms_per_step_pair"] = round(dt_v5s, 3)
-    how = "captured" if dev.type == "cuda" else "eager (CPU)"
+    how = _how(dev)
     for name, what, per, unit in (
             ("v2", f"v2 train bf16 {tb}x{t}", 1, "step"),
             ("v2_superstep", f"v2 superstep K={k}", k, "step"),
@@ -394,12 +427,31 @@ class PldaRun:
     block_err: float  # max(|card - float64| - rtol |float64|) / scale over the block
     timing: Timing
     trials_per_s: float
+    eager_timing: Timing  # the same scoring called eagerly
+
+
+def plda_scoring(dev: torch.device) -> Callable:
+    """`bench.py`'s ``score`` as ``scoring(mean, transform, psi, models,
+    tests)``: `plda_score_matrix_device` of a PLDA whose parameters are
+    tensors on ``dev``."""
+    from .backend import Plda, plda_score_matrix_device
+
+    def scoring(mean, transform, psi, models, tests):
+        return plda_score_matrix_device(Plda(mean, transform, psi), models, tests, device=dev)
+
+    return scoring
 
 
 def bench_plda_scoring(rng: np.random.Generator, extra: dict, device: DeviceLike = "cuda",
                        shapes: Shapes = Shapes(), repeats: int = REPEATS) -> PldaRun:
-    """On-device PLDA trial scoring throughput (trials/s)."""
-    from .backend import Plda, plda_score_matrix, plda_score_matrix_device
+    """On-device PLDA trial scoring throughput (trials/s).  The scoring is
+    one captured program (`graphs.CallGraphs`, `bench.py`'s jitted
+    ``score``) of the PLDA's mean, transform and psi, held on the device,
+    and the two vector sets; its second call, a replay, is checked; the
+    eager `plda_score_matrix_device` on the same inputs is timed after it
+    and goes to standard error."""
+    from .backend import Plda, plda_score_matrix
+    from .graphs import CallGraphs
 
     dev = resolve_device(device)
     dim, n_models, n_tests = shapes.plda_dim, shapes.plda_models, shapes.plda_tests
@@ -409,10 +461,15 @@ def bench_plda_scoring(rng: np.random.Generator, extra: dict, device: DeviceLike
     models = rng.normal(size=(n_models, dim)).astype(np.float32)
     tests = rng.normal(size=(n_tests, dim)).astype(np.float32)
     md, td = torch.from_numpy(models).to(dev), torch.from_numpy(tests).to(dev)
+    params = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+              for a in (plda.mean, plda.transform, plda.psi)]
+    scoring = plda_scoring(dev)
+    program = CallGraphs(scoring, device=dev)
 
     def score():
-        return plda_score_matrix_device(plda, md, td, device=dev)
+        return program(*params, md, td)
 
+    score()
     scores = score()
     blk = min(PLDA_BLOCK, n_models, n_tests)
     want = plda_score_matrix(plda, models[:blk], tests[:blk])
@@ -423,12 +480,14 @@ def bench_plda_scoring(rng: np.random.Generator, extra: dict, device: DeviceLike
              f"plda: {tuple(scores.shape)} scores, the {blk} x {blk} block off float64 by "
              f"{err:.3e} of its scale (limit {PLDA_RTOL})")
     timing, _ = time_calls(score, dev, shapes.plda_iters, repeats, shapes.warmup)
+    eager, _ = time_calls(lambda: scoring(*params, md, td), dev, shapes.plda_iters, repeats,
+                          shapes.warmup)
     rate = n_models * n_tests / (timing.median / 1e3)
     extra["plda_trials_per_s"] = round(rate, 0)
-    _log(f"# plda scoring {n_models}x{n_tests}x{dim} on {dev}: {timing.describe()}; "
-         f"{rate / 1e6:.0f}M trials/s; {blk}x{blk} block vs float64 {err:.3e} of scale "
-         f"{scale:.1f} (limit {PLDA_RTOL})")
-    return PldaRun(plda, models, tests, scores, err, timing, rate)
+    _log(f"# plda scoring {n_models}x{n_tests}x{dim} on {dev}, {_how(dev)}: "
+         f"{timing.describe()}; {rate / 1e6:.0f}M trials/s; eager: {eager.describe()}; "
+         f"{blk}x{blk} block vs float64 {err:.3e} of scale {scale:.1f} (limit {PLDA_RTOL})")
+    return PldaRun(plda, models, tests, scores, err, timing, rate, eager)
 
 
 # ------------------------------------------------------------------------ main

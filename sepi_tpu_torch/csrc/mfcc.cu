@@ -70,6 +70,7 @@ constexpr int kStepFloats = 8 * 2 * kPassBins;  // one k-step of a pass
 constexpr int kStepsPerStage = 2;  // k-steps per ring stage
 constexpr int kStageFloats = kStepsPerStage * kStepFloats;
 constexpr int kStages = 3;
+constexpr int kMaxDevices = 64;   // cards whose shared-memory attribute is tracked
 constexpr int kPowStride = kPassBins + 1;  // odd: a warp reads 32 frames' rows conflict-free
 constexpr float kFltMin = 1.17549435082228750797e-38f;
 constexpr float kInv224 = 5.9604644775390625e-08f;  // 2^-24
@@ -527,10 +528,19 @@ extern "C" int sepi_mfcc_fused(
                         (size_t)n_fix * a.tail_rows * a.sp + kFrames * kPowStride +
                         (size_t)kFrames * (n_mel | 1) + kFrames + mel_nnz + 3 * (size_t)n_mel;
   const size_t smem = floats * sizeof(float);
-  // a per-device attribute: set on every launch, so any current card has it
-  cudaError_t err =
-      cudaFuncSetAttribute(mfcc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // a per-device attribute, raised on a card the first time a launch needs
+  // more: a launch recorded into a CUDA graph after one eager launch of the
+  // same config makes no call besides the kernel's
+  static int smem_set[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices || (int)smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(mfcc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 0 && dev < kMaxDevices) smem_set[dev] = (int)smem;
+  }
   dim3 grid((t + kFrames - 1) / kFrames, batch);
   mfcc_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

@@ -8,6 +8,10 @@ and `ivector-mean` speaker averaging; `streaming_embed` pools an
 utterance of any length exactly.  A bfloat16 model's embeddings come back
 as float32: the values are bf16-rounded and the sums float32, as the
 reference's numpy upcast gives them.
+
+On a CUDA device without a mesh each bucket's forward is one replay of a
+CUDA graph (`graphs.CallGraphs`), the counterpart of the reference's
+jitted forward per bucket; ``capture=False`` runs it eagerly.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from . import graphs
 from .config import ExtractConfig
 from .device import DeviceLike, fp32_math, resolve_device
 
@@ -58,11 +63,20 @@ class EmbeddingExtractor:
     every rank plans the same batches, forwards its rows of each over the
     mesh's data axis and gathers the embeddings, so every rank returns the
     whole dict.  ``cfg.batch_size`` must be divisible by the data-axis
-    size, and the device is the rank's on the mesh (``device`` unused)."""
+    size, and the device is the rank's on the mesh (``device`` unused).
+
+    ``capture`` (the counterpart of `jax.disable_jit`): None replays a
+    CUDA graph of each bucket's forward on a CUDA device without a mesh
+    (one capture per bucket, model storage and math flags; `graphs`) and
+    runs eagerly on the CPU and with a mesh; False always runs eagerly;
+    True raises on the CPU and with a mesh."""
 
     def __init__(self, model: torch.nn.Module, cfg: ExtractConfig = ExtractConfig(),
                  min_frames: int = 15, model_kwargs: Optional[Dict] = None,
-                 device: DeviceLike = "cuda", mesh=None):
+                 device: DeviceLike = "cuda", mesh=None, capture: Optional[bool] = None):
+        if capture and mesh is not None:
+            raise ValueError("capture=True with a mesh: a mesh extraction runs eagerly "
+                             "(capture=None or False)")
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)
@@ -73,26 +87,34 @@ class EmbeddingExtractor:
             if cfg.batch_size % data_size(mesh):
                 raise ValueError(f"batch_size {cfg.batch_size} not divisible by data axis "
                                  f"{data_size(mesh)}")
+        if capture and not graphs.BACKEND.capturable(self.device):
+            raise ValueError(f"capture=True needs a CUDA device: extraction on {self.device} "
+                             f"runs eagerly (capture=None or False)")
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.min_frames = min_frames
         self.model_kwargs = dict(model_kwargs or {})
+        self.graphs = graphs.CallGraphs(
+            self._forward, capture=False if mesh is not None else capture,
+            static=(cfg.embedding_node, tuple(sorted(self.model_kwargs.items()))))
+
+    def _forward(self, model: torch.nn.Module, feats: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+        """One padded batch's float32 embeddings (a bucket's graph)."""
+        return model(feats, frame_mask=mask, **self.model_kwargs)[self.cfg.embedding_node].float()
 
     def _embed(self, feats: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """The embeddings of one padded batch; with a mesh, this rank's
         rows forwarded and every rank's gathered."""
-        if self.mesh is not None:
-            from .parallel.mesh import all_gather_rows, data_group
-            from .parallel.multihost import local_batch_slice
+        if self.mesh is None:
+            return self.graphs(self.model, feats, mask).cpu().numpy()
+        from .parallel.mesh import all_gather_rows, data_group
+        from .parallel.multihost import local_batch_slice
 
-            sl = local_batch_slice(feats.shape[0], self.mesh)
-            feats, mask = feats[sl], mask[sl]
+        sl = local_batch_slice(feats.shape[0], self.mesh)
+        out = self.graphs(self.model, feats[sl], mask[sl])
         with torch.no_grad():
-            out = self.model(torch.from_numpy(feats).to(self.device),
-                             frame_mask=torch.from_numpy(mask).to(self.device),
-                             **self.model_kwargs)[self.cfg.embedding_node].float()
-            if self.mesh is not None:
-                out = all_gather_rows(out, data_group(self.mesh))
+            out = all_gather_rows(out, data_group(self.mesh))
         return out.cpu().numpy()
 
     def extract_utterances(self, features: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:

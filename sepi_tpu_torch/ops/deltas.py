@@ -45,7 +45,10 @@ def add_deltas(feats: torch.Tensor, frame_mask: torch.Tensor, order: int = 2,
     squeeze = feats.ndim == 2
     if squeeze:
         feats, frame_mask = feats[None], frame_mask[None]
-    taps = torch.as_tensor(delta_filter(window), device=feats.device)
+    # `delta_filter`'s float32 taps, made on the device (no host copy: the
+    # frontend chain runs this inside a CUDA graph)
+    i = torch.arange(-window, window + 1, dtype=torch.float64, device=feats.device)
+    taps = (i / torch.sum(i * i)).to(torch.float32)
     offs = torch.arange(-window, window + 1, device=feats.device)
     idx = _clipped_index(frame_mask, offs)
     outs = [feats]

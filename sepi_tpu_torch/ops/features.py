@@ -134,6 +134,27 @@ def _power_spectrum(x: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     return spec[..., :k] ** 2 + spec[..., k:] ** 2
 
 
+_CONST_TABLES = {
+    "fused_basis": fused_dft_basis,
+    "basis": dft_basis,
+    "mel": mel_banks,
+    "dct": lambda cfg: dct_matrix(cfg.num_ceps, cfg.num_mel_bins),
+    "lifter": lambda cfg: lifter_coeffs(cfg.num_ceps, cfg.cepstral_lifter),
+    "window": window_function,
+}
+_CONSTS = {}
+
+
+def _device_const(name: str, cfg: FrontendConfig, dev: torch.device) -> torch.Tensor:
+    """A float32 table of the stepwise route on ``dev``, copied there once:
+    the first (eager) call of a captured frontend makes it, and the
+    capture, in which no host copy may run, reads it."""
+    key = (name, cfg, dev)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.from_numpy(_CONST_TABLES[name](cfg)).to(dev)
+    return _CONSTS[key]
+
+
 SPECTRAL_MODES = ("auto", "pallas", "slices", "conv")
 
 
@@ -183,12 +204,15 @@ class FeatureExtractor:
             max_frames = int(num_frames(samples.shape[1], self.cfg))
         return samples, lengths, max_frames, squeeze
 
-    def _seeds(self, utt_seeds) -> Optional[np.ndarray]:
-        """The dither's per-utterance seeds, or None: undithered without
-        seeds or with ``cfg.dither == 0``, as in the reference."""
+    def _seeds(self, utt_seeds) -> Optional[torch.Tensor]:
+        """The dither's per-utterance seeds as an int32 tensor on the
+        device, or None: undithered without seeds or with ``cfg.dither ==
+        0``, as in the reference."""
         if self.cfg.dither == 0.0 or utt_seeds is None:
             return None
-        return np.asarray(utt_seeds, np.int32)
+        if not isinstance(utt_seeds, torch.Tensor):
+            utt_seeds = torch.from_numpy(np.asarray(utt_seeds, np.int32))
+        return utt_seeds.to(self.device, torch.int32)
 
     def _spectral(self, samples, lengths, max_frames, seeds):
         """(log-mel (B, T, M), log-energy (B, T), mask (B, T)), the
@@ -203,12 +227,12 @@ class FeatureExtractor:
             s2 = (frames * frames).sum(-1)
             energy = s2 - s1 * s1 / cfg.frame_length if cfg.remove_dc_offset else s2
             log_e = torch.log(torch.clamp(energy, min=_EPS))
-            basis = fused_dft_basis(cfg)
+            basis = _device_const("fused_basis", cfg, dev)
         else:
             frames, log_e, mask = frame_signal(samples, lengths, cfg, max_frames, seeds=seeds)
-            basis = dft_basis(cfg)
-        power = _power_spectrum(frames, torch.from_numpy(basis).to(dev))
-        mel = torch.from_numpy(mel_banks(cfg)).to(dev)
+            basis = _device_const("basis", cfg, dev)
+        power = _power_spectrum(frames, basis)
+        mel = _device_const("mel", cfg, dev)
         return torch.log(torch.clamp(power @ mel, min=_EPS)), log_e, mask
 
     @fp32_math()
@@ -217,9 +241,8 @@ class FeatureExtractor:
         replaced by the floored log energy when ``cfg.use_energy``."""
         cfg = self.cfg
         log_mel, log_e, mask = self._spectral(samples, lengths, max_frames, seeds)
-        dct = torch.from_numpy(dct_matrix(cfg.num_ceps, cfg.num_mel_bins)).to(self.device)
-        lifter = torch.from_numpy(lifter_coeffs(cfg.num_ceps, cfg.cepstral_lifter))
-        ceps = (log_mel @ dct) * lifter.to(self.device)
+        dct = _device_const("dct", cfg, self.device)
+        ceps = (log_mel @ dct) * _device_const("lifter", cfg, self.device)
         if cfg.use_energy:
             if cfg.energy_floor > 0.0:
                 log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
@@ -240,8 +263,6 @@ class FeatureExtractor:
         if self.fused:
             from .mfcc_cuda import mfcc_fused
 
-            if seeds is not None:
-                seeds = torch.from_numpy(seeds).to(self.device)
             feats, mask = mfcc_fused(samples.contiguous(), lengths, self.cfg, max_frames, seeds)
         else:
             feats, mask = self._mfcc_stepwise(samples, lengths, max_frames, seeds)

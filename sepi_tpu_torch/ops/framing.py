@@ -125,7 +125,9 @@ def frame_signal(samples, lengths, cfg: FrontendConfig, max_frames: int,
     dev = frames.device
     if seeds is not None and cfg.dither != 0.0:
         flen = cfg.frame_length
-        s = torch.as_tensor(np.asarray(seeds, np.int64) & MASK32, device=dev)[:, None, None]
+        if not isinstance(seeds, torch.Tensor):
+            seeds = torch.from_numpy(np.asarray(seeds, np.int64))
+        s = (seeds.to(dev, torch.int64) & MASK32)[:, None, None]
         cnt = torch.arange(max_frames * flen, device=dev).reshape(1, max_frames, flen)
         # a fixed span (2^27, 1.9 h of 10 ms frames at flen 200): the second
         # uniform's counters must not depend on the batch's padding
@@ -137,7 +139,9 @@ def frame_signal(samples, lengths, cfg: FrontendConfig, max_frames: int,
     if cfg.preemphasis != 0.0:
         shifted = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
         frames = frames - cfg.preemphasis * shifted
-    frames = frames * torch.from_numpy(window_function(cfg)).to(dev)
+    from .features import _device_const
+
+    frames = frames * _device_const("window", cfg, dev)
     if not cfg.raw_energy:
         log_energy = torch.log(torch.clamp((frames * frames).sum(-1), min=tiny))
     return frames, log_energy, mask

@@ -11,11 +11,12 @@ samples with their own noise domain, and frames past the end are zeroed.
 
 - On a CUDA tensor the wrapper launches `csrc/mfcc.cu` (built with nvcc
   at first use, `sepi_tpu_torch/build.py`) once and counts the launch in
-  ``mfcc_fused.launches``.  The kernel computes the frame counts, the tail
-  frames (`tail_plan` writes out their sample indices and noise
-  counters), the mask and the zeroed frames itself; the DFT runs on the
-  tensor cores as three TF32 products on the basis in fragment order
-  (`fragment_basis`).  A failed build or launch raises.
+  ``mfcc_fused.launches`` (`graphs.count_launch`: a launch recorded into
+  a CUDA graph counts on every replay).  The kernel computes the frame
+  counts, the tail frames (`tail_plan` writes out their sample indices
+  and noise counters), the mask and the zeroed frames itself; the DFT
+  runs on the tensor cores as three TF32 products on the basis in
+  fragment order (`fragment_basis`).  A failed build or launch raises.
 - On a CPU tensor it runs `mfcc_fused_reference`, the plain PyTorch
   version of the same function, which the tests hold against the JAX
   kernel run in interpret mode.
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import FrontendConfig
+from ..graphs import count_launch
 from .dither import MASK32, fmix32, hash_normal, hash_normal_pair
 from .framing import gather_frames_exact, num_frames
 
@@ -335,7 +337,7 @@ def mfcc_fused(samples: torch.Tensor, lengths: torch.Tensor, cfg: FrontendConfig
     out = torch.empty((b, max_frames, cfg.num_ceps), dtype=torch.float32, device=dev)
     mask = torch.empty((b, max_frames), dtype=torch.bool, device=dev)
     _launch(samples, lengths, seeds, cfg, max_frames, c, out, mask)
-    mfcc_fused.launches += 1
+    count_launch(mfcc_fused)
     return out, mask
 
 

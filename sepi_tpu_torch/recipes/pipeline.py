@@ -44,6 +44,7 @@ from ..data.manifest import Dataset, Trial
 from ..data.sampler import ChunkSampler
 from ..device import DeviceLike, fp32_math, resolve_device
 from ..extract import EmbeddingExtractor
+from ..graphs import CallGraphs
 from ..metrics.det import EvalResult, evaluate_scores, split_scores_by_trials
 from ..models import XVector, XVectorConfig
 from ..ops.cmvn import sliding_cmvn
@@ -89,6 +90,7 @@ def _frontend_batches(
     batch_size: int,
     pad_grid: int = 4000,
     transform=None,
+    capture: Optional[bool] = None,
 ):
     """Run MFCC -> VAD -> [transform] -> CMVN over length-sorted padded
     batches on ``fe.device``.  Yields (utt_ids, feats (B,T,D),
@@ -98,22 +100,28 @@ def _frontend_batches(
     function of (utt_id, config[, key]) through per-utterance seeds, so
     features do not depend on batch composition.  ``key`` is an int that
     salts the whole corpus.
+
+    On a CUDA device the chain is one CUDA graph replay per padded batch
+    (`graphs.CallGraphs`: a graph per batch shape, dithered or not, kept
+    for the generator's life; the host batch comes in through a pinned
+    staging buffer), the counterpart of the reference's jitted frontend,
+    VAD and CMVN; ``capture=False`` runs it eagerly.
     """
     dither_on = fe.cfg.dither != 0.0
     salt = int(key) if (key is not None and dither_on) else 0
-    for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid):
-        seeds = utt_seeds(names, base_seed=salt) if dither_on else None
+
+    def chain(samples, lengths, seeds=None):
         feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
         voiced = energy_vad(feats[..., 0], mask, vad)
         if transform is not None:
             feats = transform(feats, mask)
-        normed = sliding_cmvn(feats, mask, cmvn)
-        yield (
-            names,
-            normed.cpu().numpy(),
-            voiced.cpu().numpy(),
-            mask.sum(-1).cpu().numpy(),
-        )
+        return sliding_cmvn(feats, mask, cmvn), voiced, mask.sum(-1)
+
+    run = CallGraphs(chain, capture=capture, device=fe.device)
+    for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid):
+        seeds = [utt_seeds(names, base_seed=salt)] if dither_on else []
+        normed, voiced, n_frames = run(samples, lengths, *seeds)
+        yield names, normed.cpu().numpy(), voiced.cpu().numpy(), n_frames.cpu().numpy()
 
 
 def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
@@ -460,19 +468,23 @@ def extract_and_score(
     model_kwargs: Optional[Dict] = None,
     mesh=None,
     device: DeviceLike = "cuda",
+    capture: Optional[bool] = None,
 ) -> Dict[str, np.ndarray]:
     """Chunked embedding extraction for all utterances.  ``state`` is what
     a trainer returned (a `TrainState`, whose ``model`` weights are loaded
     into ``model``), a state_dict (e.g. from
     `bridge.xvector_state_dict_from_flax`), or None to keep the model's
     own weights.  With a ``mesh`` each batch's rows are sharded over its
-    data axis and every rank returns every embedding."""
+    data axis and every rank returns every embedding.  ``capture`` is
+    `EmbeddingExtractor`'s: each bucket's forward a CUDA graph replay on
+    a CUDA device without a mesh by default, eager with False."""
     if isinstance(state, TrainState):
         state = state.model.state_dict()
     if state is not None:
         model.load_state_dict(state)
     extractor = EmbeddingExtractor(model, extract_cfg, min_frames=min_frames,
-                                   model_kwargs=model_kwargs, device=device, mesh=mesh)
+                                   model_kwargs=model_kwargs, device=device, mesh=mesh,
+                                   capture=capture)
     return extractor.extract_utterances(features)
 
 

@@ -26,52 +26,35 @@ back from a snapshot, so the first replay is the first real step.  Each
 replay copies the batch into the graph's static buffers, fills the
 scalar row and returns fresh tensors cloned from the graph's outputs.
 
-Every graph on a device (one per chunk-length bucket, per K, per task)
-is captured into one memory pool, held for the process, so the graphs
-hold the largest one's working memory and not the sum, and a later
-capture reuses what a dead graph held.  (A pool per graph, or per step
-function, is not given back to the allocator when its graphs die: the
-drivers' buckets ran a card out of memory that way.)  Sharing is safe in
-any replay order: the static inputs live outside the pool, a graph's
-outputs stay allocated (no other capture is given them), and each
-replay's outputs are cloned before anything else runs, so another
-graph's replay may only overwrite temporaries and outputs already read;
-replays run in turn on the caller's stream.  A capture or a replay that
-fails raises `GraphCaptureError`; the eager step is never run in its
-place.
+Every graph on a device, training and inference, is captured into the
+one memory pool of `sepi_tpu_torch.graphs` (which holds the capture
+machinery: the side stream, the pool, the counts), so the graphs hold the
+largest one's working memory and not the sum, and a later capture reuses
+what a dead graph held.  (A pool per graph, or per step function, is not
+given back to the allocator when its graphs die: the drivers' buckets ran
+a card out of memory that way.)  Sharing is safe in any replay order: the
+static inputs live outside the pool, a graph's outputs stay allocated (no
+other capture is given them), and each replay's outputs are cloned before
+anything else runs, so another graph's replay may only overwrite
+temporaries and outputs already read; replays run in turn on the caller's
+stream.  A capture or a replay that fails raises `GraphCaptureError`; the
+eager step is never run in its place.
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
-import gc
 import weakref
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+# the capture machinery lives in sepi_tpu_torch.graphs; its names stay exported here
+from ..graphs import (BACKEND, GraphCaptureError, _Cuda, counts, live_graphs,  # noqa: F401
+                      math_flags, register, reset_counts)
 from .optim import StepScalars
 
 WARMUP = 2  # eager iterations on the side stream before a capture
-
-# captures and replays since the counts were last set to 0 (across every StepGraphs)
-counts = {"captures": 0, "replays": 0}
-_ALL: "weakref.WeakSet[StepGraphs]" = weakref.WeakSet()
-
-
-class GraphCaptureError(RuntimeError):
-    """A captured step could not be captured or replayed."""
-
-
-def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
-
-
-def live_graphs() -> int:
-    """Graphs held by live step functions."""
-    return sum(len(s.graphs) for s in list(_ALL))
 
 
 def state_tensors(state):
@@ -88,16 +71,6 @@ def state_tensors(state):
     yield from walk(state.opt_state)
 
 
-def math_flags() -> Tuple:
-    """The flags a captured kernel choice depends on: TF32 for matmuls and
-    cuDNN, cuDNN's algorithm selection and determinism."""
-    cudnn = torch.backends.cudnn
-    return (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
-            cudnn.enabled, cudnn.allow_tf32, cudnn.benchmark, cudnn.deterministic,
-            torch.are_deterministic_algorithms_enabled())
-
-
 def graph_key(state, task_kwargs: Dict, feats: torch.Tensor, labels: torch.Tensor,
               k: Optional[int] = None) -> Tuple:
     """What a graph is valid for: the task, the batch's shapes and dtypes,
@@ -106,73 +79,6 @@ def graph_key(state, task_kwargs: Dict, feats: torch.Tensor, labels: torch.Tenso
     return (tuple(sorted(task_kwargs.items())), k, feats.device,
             tuple(feats.shape), feats.dtype, tuple(labels.shape), labels.dtype, math_flags(),
             tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in state_tensors(state)))
-
-
-class _Cuda:
-    """The CUDA calls of a capture, in one place (a test substitutes them)."""
-
-    def __init__(self):
-        self.streams: Dict[int, torch.cuda.Stream] = {}
-        self.pools: Dict[int, Tuple] = {}
-
-    def capturable(self, dev: torch.device) -> bool:
-        return dev.type == "cuda"
-
-    @staticmethod
-    def _index(dev: torch.device) -> int:
-        return dev.index if dev.index is not None else torch.cuda.current_device()
-
-    def _stream(self, dev: torch.device) -> torch.cuda.Stream:
-        index = self._index(dev)
-        if index not in self.streams:
-            self.streams[index] = torch.cuda.Stream(device=index)
-        return self.streams[index]
-
-    def pool(self, dev: torch.device):
-        """The device's one memory pool for every capture, held for the
-        process by an anchor graph (a one-element add) captured into it
-        first: the caching allocators (device and pinned host) refuse a
-        capture into a pool whose every graph has died."""
-        index = self._index(dev)
-        if index not in self.pools:
-            pool = torch.cuda.graph_pool_handle()
-            x = torch.zeros(1, device=torch.device("cuda", index))
-            anchor, _ = self.capture(x.device, lambda: x.add_(1), pool)
-            self.pools[index] = (pool, anchor, x)
-        return self.pools[index][0]
-
-    @contextlib.contextmanager
-    def side_stream(self, dev: torch.device) -> Iterator[None]:
-        """Run the block on the capture stream, ordered after and before
-        the current stream's work."""
-        stream, cur = self._stream(dev), torch.cuda.current_stream(dev)
-        stream.wait_stream(cur)
-        try:
-            with torch.cuda.stream(stream):
-                yield
-        finally:
-            cur.wait_stream(stream)
-
-    def capture(self, dev: torch.device, fn: Callable[[], torch.Tensor], pool):
-        """(graph, fn's output captured on the side stream into ``pool``)."""
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
-        enabled = gc.isenabled()
-        gc.disable()  # no collection (and no frees it might trigger) mid-capture
-        try:
-            with self.side_stream(dev):
-                graph.capture_begin(pool=pool)
-                try:
-                    out = fn()
-                finally:
-                    graph.capture_end()
-        finally:
-            if enabled:
-                gc.enable()
-        return graph, out
-
-
-BACKEND = _Cuda()
 
 
 def _model_device(state) -> torch.device:
@@ -286,7 +192,7 @@ class StepGraphs:
         self.task_kwargs = dict(task_kwargs)
         self.superstep, self.capture = superstep, capture
         self.graphs: Dict[Tuple, CapturedStep] = {}
-        _ALL.add(self)
+        register(self)
 
     def _evict_dead(self) -> None:
         for key in [key for key, g in self.graphs.items() if g.model() is None]:

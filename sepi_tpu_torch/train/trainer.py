@@ -18,8 +18,10 @@ batches are staged ahead of use from pinned host memory on a side stream.
 On a CUDA state without a mesh the step factories return captured steps
 (`train.graphs`), the counterpart of the reference's jit: a step is one
 CUDA graph replay, a K-step superstep one replay of its K steps unrolled,
-with the eager step's numbers.  ``capture=False`` runs eagerly (the
-counterpart of `jax.disable_jit`); the CPU and a mesh run eagerly.
+with the eager step's numbers; the held-out eval step is one replay of
+an inference graph (`graphs.CallGraphs`).  ``capture=False`` runs
+eagerly (the counterpart of `jax.disable_jit`); the CPU and a mesh run
+eagerly.
 
 With a ``mesh`` (`parallel.make_mesh`) a step is one step on the global
 batch, as the reference's GSPMD step is: each rank takes its shard of the
@@ -47,6 +49,7 @@ import torch.nn.functional as F
 from ..models.tdnn import batch_moments, lecun_normal_init, sync_batch_norm
 from ..parallel.mesh import (batch_sharded, broadcast_state, data_group, local_shard,
                              reduce_sum_, superbatch_sharded)
+from ..graphs import CallGraphs
 from .graphs import StepGraphs, eager_superstep
 from .graphs import state_tensors as _state_tensors
 from .optim import OptimizerChain, apply_updates, global_norm
@@ -216,25 +219,45 @@ def make_superstep(tx: OptimizerChain, task_kwargs: Optional[Dict] = None, mesh=
     return sstep
 
 
-def make_eval_step(task_kwargs: Optional[Dict] = None, mesh=None, frame_level: bool = False):
+def make_eval_step(task_kwargs: Optional[Dict] = None, mesh=None, frame_level: bool = False,
+                   capture: Optional[bool] = None):
     """Held-out objective: ``ev(state, feats, labels)`` -> {objf,
     accuracy} as device scalars, in eval mode (running statistics).
     Labels are (B,) speaker labels or (B, L) frame labels, whatever
     ``frame_level`` says (the reference's keyword, which its step does not
     read either).  With a
     ``mesh`` every rank scores the whole batch and the values are averaged
-    over the data axis, so every rank reads the same numbers."""
+    over the data axis, so every rank reads the same numbers.
+
+    ``capture`` as in `make_xvec_step`: None replays a CUDA graph of the
+    evaluation on a CUDA state without a mesh (`graphs.CallGraphs`, one
+    per batch shape and model storage; ``ev.graphs``) and runs eagerly on
+    the CPU; False always runs eagerly; True raises on a CPU state or
+    with a mesh."""
     kw = dict(task_kwargs or {})
     group = data_group(mesh)
+
+    def body(model: torch.nn.Module, feats: torch.Tensor, labels: torch.Tensor):
+        logits = _logits(model(feats, **kw))
+        xent = _softmax_xent(logits, labels)
+        return torch.stack([-xent.mean(), (logits.argmax(-1) == labels).float().mean()])
+
+    if _captures(capture, mesh):
+        calls = CallGraphs(body, capture=capture, static=tuple(sorted(kw.items())))
+
+        def ev(state: TrainState, feats, labels):
+            state.model.eval()
+            m = calls(state.model, feats, labels)
+            return {"objf": m[0], "accuracy": m[1]}
+
+        ev.graphs = calls
+        return ev
 
     def ev(state: TrainState, feats, labels):
         model = state.model
         model.eval()
         with torch.no_grad():
-            logits = _logits(model(_to(feats, model), **kw))
-            labels = _to(labels, model)
-            xent = _softmax_xent(logits, labels)
-            m = torch.stack([-xent.mean(), (logits.argmax(-1) == labels).float().mean()])
+            m = body(model, _to(feats, model), _to(labels, model))
             if group is not None:
                 reduce_sum_([m], group, mean=True)
             return {"objf": m[0], "accuracy": m[1]}

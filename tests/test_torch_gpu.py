@@ -802,7 +802,9 @@ def test_bench_checks_hold_on_the_card(cuda):
     shapes = bench.Shapes(**GPU_BENCH)
     before = mfcc_cuda.mfcc_fused.launches
     line, runs = bench.main(device="cuda", repeats=2, shapes=shapes)
-    assert mfcc_cuda.mfcc_fused.launches - before == 1 + shapes.warmup + 2 * shapes.extract_iters
+    # the capturing call, the checked replay, the captured and the eager timed calls
+    assert mfcc_cuda.mfcc_fused.launches - before == runs["extraction"].calls == 2 + 2 * (
+        shapes.warmup + 2 * shapes.extract_iters)
     assert runs["extraction"].embeddings.device.type == "cuda"
     assert runs["extraction"].mfcc_err <= bench.MFCC_TOL
     assert runs["plda"].block_err <= bench.PLDA_RTOL
@@ -934,3 +936,128 @@ def test_failed_capture_raises_on_the_card(cuda, monkeypatch):
     monkeypatch.undo()
     m = make_xvec_step(chain, capture=True)(state, f, l, 1.0)
     assert state.step == 1 and bool(torch.isfinite(m["objf"]))
+
+
+# ------------------------------------------------------------- the compiled serving path
+
+
+def _serving_model(dev, dtype="float32", seed=4):
+    from sepi_tpu_torch.models import TdnnSpec, XVector, XVectorConfig
+
+    specs = (TdnnSpec(64, (-2, -1, 0, 1, 2)), TdnnSpec(64, (-2, 0, 2)), TdnnSpec(192, (0,)))
+    model = XVector(XVectorConfig(feat_dim=23, num_speakers=12, frame_specs=specs,
+                                  embed_dim=64), dtype=dtype)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) / max(p[0].numel(), 1) ** 0.5)
+    return model.to(dev).eval()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_extractor_equals_eager_on_the_card(deterministic_cudnn, dtype):
+    """Every bucket of a short ladder captured, replayed, and after
+    load_state_dict and model.to(), bit-equal to capture=False; a graph of
+    the replaced weights replays them."""
+    from sepi_tpu_torch import graphs
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+
+    dev = deterministic_cudnn
+    cfg = ExtractConfig(chunk_size=400, batch_size=8)
+    model = _serving_model(dev, dtype)
+    rng = np.random.default_rng(5)
+    feats = {f"u{i}": rng.standard_normal((n, 23)).astype(np.float32)
+             for i, n in enumerate([25, 40, 90, 150, 300, 400, 1000] + [45] * 10)}
+    cap = EmbeddingExtractor(model, cfg, min_frames=15, device=dev)
+    eag = EmbeddingExtractor(model, cfg, min_frames=15, device=dev, capture=False)
+
+    def same():
+        got, want = cap.extract_utterances(feats), eag.extract_utterances(feats)
+        return all(np.array_equal(got[u], want[u]) for u in want)
+
+    graphs.reset_counts()
+    assert same() and same()
+    assert graphs.call_counts["replays"] > 0 and len(cap.graphs.graphs) == 5
+    model.load_state_dict(_serving_model("cpu", dtype, seed=6).state_dict())
+    assert same() and graphs.call_counts["captures"] == 5
+    old = next(iter(cap.graphs.graphs.values()))
+    model.to("cpu").to(dev)
+    model.load_state_dict(_serving_model("cpu", dtype, seed=7).state_dict())
+    assert same() and graphs.call_counts["captures"] == 10
+    x = torch.randn((8, 25, 23))
+    m = torch.ones((8, 25), dtype=torch.bool)
+    assert not torch.equal(old.run([model, x, m]), eag.graphs(model, x, m))
+
+
+def test_captured_frontend_chain_equals_eager_on_the_card(deterministic_cudnn):
+    """The frontend chain replayed, dithered and with the v1 deltas: equal
+    to capture=False; the MFCC launches counted through the replays."""
+    from sepi_tpu_torch import graphs
+    from sepi_tpu_torch.config import MFCC_SRE_IVECTOR, CmvnConfig, VadConfig
+    from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.ops.deltas import add_deltas
+    from sepi_tpu_torch.recipes.pipeline import _frontend_batches
+
+    dev = deterministic_cudnn
+    rng = np.random.default_rng(8)
+    audio = {f"a{i}": (rng.standard_normal(n) * 1000).astype(np.float32)
+             for i, n in enumerate(list(rng.integers(24000, 25000, 12)) + [9000, 41000])}
+    for cfg, key, transform in ((FrontendConfig(), 3, None),
+                                (MFCC_SRE_IVECTOR, None, lambda f, m: add_deltas(f, m))):
+        fe = FeatureExtractor(cfg, dev)
+        graphs.reset_counts()
+        before = mfcc_cuda.mfcc_fused.launches
+        got = list(_frontend_batches(audio, fe, VadConfig(), CmvnConfig(), key, 4,
+                                     transform=transform))
+        assert mfcc_cuda.mfcc_fused.launches - before == len(got)
+        assert graphs.call_counts["replays"] > 0
+        want = list(_frontend_batches(audio, fe, VadConfig(), CmvnConfig(), key, 4,
+                                      transform=transform, capture=False))
+        for g, w in zip(got, want):
+            assert g[0] == w[0] and all(np.array_equal(a, b) for a, b in zip(g[1:], w[1:]))
+
+
+def test_captured_eval_step_and_bench_programs_on_the_card(deterministic_cudnn):
+    """The eval step and the bench's scoring program replayed, bit-equal to
+    the eager calls."""
+    from sepi_tpu_torch import bench
+    from sepi_tpu_torch.config import OptimizerConfig
+    from sepi_tpu_torch.graphs import CallGraphs
+    from sepi_tpu_torch.train import make_eval_step
+
+    dev = deterministic_cudnn
+    _, state = _tiny_train_state(dev, OptimizerConfig())
+    ev, ev_e = make_eval_step(), make_eval_step(capture=False)
+    for f, lab in _train_batches(count=3) * 2:
+        got, want = ev(state, f, lab), ev_e(state, f, lab)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    assert len(ev.graphs.graphs) == 1
+    rng = np.random.default_rng(9)
+    q = np.linalg.qr(rng.normal(size=(32, 32)))[0]
+    inputs = [torch.tensor(np.asarray(a, np.float32), device=dev)
+              for a in (rng.normal(size=32), q, rng.uniform(0.1, 5.0, 32),
+                        rng.normal(size=(300, 32)), rng.normal(size=(200, 32)))]
+    scoring = bench.plda_scoring(dev)
+    program = CallGraphs(scoring, device=dev)
+    for _ in range(3):
+        assert torch.equal(program(*inputs), scoring(*inputs))
+
+
+def test_failed_inference_capture_raises_on_the_card(cuda, monkeypatch):
+    """A capture that fails raises GraphCaptureError, and the extractor
+    does not run eagerly in its place."""
+    from sepi_tpu_torch import graphs
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+
+    ext = EmbeddingExtractor(_serving_model(cuda), ExtractConfig(batch_size=4), min_frames=15,
+                             device=cuda)
+
+    def fail(dev, fn, pool):
+        raise RuntimeError("planted capture failure")
+
+    monkeypatch.setattr(graphs.BACKEND, "capture", fail)
+    with pytest.raises(graphs.GraphCaptureError, match="planted"):
+        ext.extract_utterances({"u": np.zeros((60, 23), np.float32)})
+    assert ext.graphs.graphs == {}
