@@ -28,6 +28,8 @@ from typing import Dict, Iterable, Iterator, Mapping, Optional
 
 import numpy as np
 
+from ..utils.logging import span
+
 
 class FeatStore(Mapping):
     """Memory-mapped utt -> (T, D) feature table.
@@ -170,7 +172,8 @@ class _StreamWriter:
 class PrefetchLoader:
     """Wraps a batch iterator; a daemon thread keeps up to ``depth``
     batches ready.  An exception in the producer reaches the consumer at
-    its next ``__next__``."""
+    its next ``__next__``.  Each draw is the span ``train.sample``
+    (`utils.logging`), on the producer thread's own stack."""
 
     _DONE = object()
 
@@ -183,7 +186,11 @@ class PrefetchLoader:
 
     def _run(self, it: Iterator):
         try:
-            for item in it:
+            while True:
+                with span("train.sample"):
+                    item = next(it, self._DONE)
+                if item is self._DONE:
+                    break
                 while not self._stop:
                     try:
                         self._q.put(item, timeout=0.2)

@@ -24,6 +24,7 @@ import torch
 from . import graphs
 from .config import ExtractConfig
 from .device import DeviceLike, fp32_math, resolve_device
+from .utils.logging import count, span
 
 
 def chunk_spans(num_frames: int, cfg: ExtractConfig, min_frames: int) -> List[Tuple[int, int]]:
@@ -107,18 +108,55 @@ class EmbeddingExtractor:
         """The embeddings of one padded batch; with a mesh, this rank's
         rows forwarded and every rank's gathered."""
         if self.mesh is None:
-            return self.graphs(self.model, feats, mask).cpu().numpy()
-        from .parallel.mesh import all_gather_rows, data_group
-        from .parallel.multihost import local_batch_slice
+            out = self.graphs(self.model, feats, mask)
+        else:
+            from .parallel.mesh import all_gather_rows, data_group
+            from .parallel.multihost import local_batch_slice
 
-        sl = local_batch_slice(feats.shape[0], self.mesh)
-        out = self.graphs(self.model, feats[sl], mask[sl])
-        with torch.no_grad():
-            out = all_gather_rows(out, data_group(self.mesh))
-        return out.cpu().numpy()
+            sl = local_batch_slice(feats.shape[0], self.mesh)
+            out = self.graphs(self.model, feats[sl], mask[sl])
+            with torch.no_grad():
+                out = all_gather_rows(out, data_group(self.mesh))
+        with span("extract.readback"):
+            return out.cpu().numpy()
 
     def extract_utterances(self, features: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """utt_id -> (T, D) features  =>  utt_id -> embedding."""
+        """utt_id -> (T, D) features  =>  utt_id -> embedding.  Counts each
+        batch's real chunk rows and frames against its slots (batch size x
+        bucket length): ``extract.rows``, ``extract.row_slots``,
+        ``extract.frames``, ``extract.frame_slots`` (`utils.logging.count`)."""
+        with span("extract"):
+            with span("extract.plan"):
+                plan = self._plan(features)
+            feat_dim = next(iter(features.values())).shape[1]
+            sums: Dict[str, np.ndarray] = {}
+            weights: Dict[str, float] = {}
+            bs = self.cfg.batch_size
+            for b, items in plan.items():
+                for i0 in range(0, len(items), bs):
+                    group = items[i0:i0 + bs]
+                    with span("extract.pack"):
+                        feats = np.zeros((bs, b, feat_dim), np.float32)
+                        mask = np.zeros((bs, b), bool)
+                        for j, (utt, off, length) in enumerate(group):
+                            feats[j, :length] = features[utt][off:off + length]
+                            mask[j, :length] = True
+                    count("extract.rows", len(group))
+                    count("extract.row_slots", bs)
+                    count("extract.frames", sum(length for _, _, length in group))
+                    count("extract.frame_slots", bs * b)
+                    emb = self._embed(feats, mask)
+                    for j, (utt, off, length) in enumerate(group):
+                        if utt in sums:
+                            sums[utt] = sums[utt] + length * emb[j]
+                            weights[utt] += length
+                        else:
+                            sums[utt] = length * emb[j]
+                            weights[utt] = float(length)
+            return {u: sums[u] / weights[u] for u in sums}
+
+    def _plan(self, features: Mapping[str, np.ndarray]) -> Dict[int, List[Tuple[str, int, int]]]:
+        """bucket length -> the (utt, offset, length) chunks it holds."""
         ladder = bucket_ladder(self.cfg, self.min_frames)
         plan: Dict[int, List[Tuple[str, int, int]]] = {b: [] for b in ladder}
         skipped = []
@@ -136,28 +174,7 @@ class EmbeddingExtractor:
                 f"({max(self.cfg.min_chunk_size, self.min_frames)} frames), "
                 f"e.g. {skipped[:3]}"
             )
-
-        feat_dim = next(iter(features.values())).shape[1]
-        sums: Dict[str, np.ndarray] = {}
-        weights: Dict[str, float] = {}
-        bs = self.cfg.batch_size
-        for b, items in plan.items():
-            for i0 in range(0, len(items), bs):
-                group = items[i0:i0 + bs]
-                feats = np.zeros((bs, b, feat_dim), np.float32)
-                mask = np.zeros((bs, b), bool)
-                for j, (utt, off, length) in enumerate(group):
-                    feats[j, :length] = features[utt][off:off + length]
-                    mask[j, :length] = True
-                emb = self._embed(feats, mask)
-                for j, (utt, off, length) in enumerate(group):
-                    if utt in sums:
-                        sums[utt] = sums[utt] + length * emb[j]
-                        weights[utt] += length
-                    else:
-                        sums[utt] = length * emb[j]
-                        weights[utt] = float(length)
-        return {u: sums[u] / weights[u] for u in sums}
+        return plan
 
 
 @fp32_math()

@@ -35,7 +35,9 @@ raises `GraphCaptureError`; the eager call is never run in its place.
 A kernel wrapper counts its launches with `count_launch`: at once when
 it runs eagerly, and on every replay when it is recorded into a graph
 (`on_replay`), so a launch count read around a path holds whether the
-path ran eagerly or as replays.
+path ran eagerly or as replays.  A capture's warm-up call and its record,
+and every copy in and replay, are spans of `utils.logging` (``graph.eager``,
+``graph.capture``, ``graph.load``, ``graph.replay``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .utils.logging import span
 
 CALL_WARMUP = 1  # eager calls on the capture stream before an inference capture
 
@@ -236,18 +240,19 @@ class CapturedCall:
         self.graph = None
 
     def _load(self, args: Sequence) -> None:
-        if self.staged is not None:
-            self.staged.synchronize()
-        for i, (buf, a) in enumerate(zip(self.args, args)):
-            if not isinstance(a, torch.Tensor):
-                continue
-            if i in self.pinned:
-                self.pinned[i].copy_(a)
-                buf.copy_(self.pinned[i], non_blocking=True)
-            else:
-                buf.copy_(a)
-        if self.staged is not None:
-            self.staged.record()
+        with span("graph.load"):
+            if self.staged is not None:
+                self.staged.synchronize()
+            for i, (buf, a) in enumerate(zip(self.args, args)):
+                if not isinstance(a, torch.Tensor):
+                    continue
+                if i in self.pinned:
+                    self.pinned[i].copy_(a)
+                    buf.copy_(self.pinned[i], non_blocking=True)
+                else:
+                    buf.copy_(a)
+            if self.staged is not None:
+                self.staged.record()
 
     def _call(self):
         with torch.no_grad(), _bound(self.entries):
@@ -269,10 +274,11 @@ class CapturedCall:
         """Warm up (the call's real result), then capture into ``pool``."""
         self._load(args)
         try:
-            with BACKEND.side_stream(self.device):
+            with span("graph.eager"), BACKEND.side_stream(self.device):
                 for _ in range(CALL_WARMUP):
                     first = self._call()
-            self.graph, _ = BACKEND.capture(self.device, self._body, pool)
+            with span("graph.capture"):
+                self.graph, _ = BACKEND.capture(self.device, self._body, pool)
         except Exception as e:
             raise GraphCaptureError(
                 f"capturing {getattr(self.fn, '__qualname__', self.fn)} failed "
@@ -287,14 +293,15 @@ class CapturedCall:
     def run(self, args: Sequence):
         """Copy the inputs in, replay, and return fresh outputs."""
         self._load(args)
-        try:
-            self.graph.replay()
-        except Exception as e:
-            raise GraphCaptureError(f"replaying {getattr(self.fn, '__qualname__', self.fn)} "
-                                    f"failed ({type(e).__name__}: {e})") from e
-        counts["replays"] += 1
-        call_counts["replays"] += 1
-        outs = tuple(o.clone() for o in self.outs)
+        with span("graph.replay"):
+            try:
+                self.graph.replay()
+            except Exception as e:
+                raise GraphCaptureError(f"replaying {getattr(self.fn, '__qualname__', self.fn)} "
+                                        f"failed ({type(e).__name__}: {e})") from e
+            counts["replays"] += 1
+            call_counts["replays"] += 1
+            outs = tuple(o.clone() for o in self.outs)
         for hook in self.hooks:
             hook()
         return outs[0] if self.single else outs

@@ -65,7 +65,7 @@ from ..train import (
     save_checkpoint,
 )
 from ..train.checkpoint import latest_checkpoint, parameter_progress
-from ..utils.logging import profile
+from ..utils.logging import profile, span
 
 
 def _shape_bucket(n: int, grid: int, growth: float = 1.3) -> int:
@@ -121,7 +121,9 @@ def _frontend_batches(
     for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid):
         seeds = [utt_seeds(names, base_seed=salt)] if dither_on else []
         normed, voiced, n_frames = run(samples, lengths, *seeds)
-        yield names, normed.cpu().numpy(), voiced.cpu().numpy(), n_frames.cpu().numpy()
+        with span("frontend.readback"):
+            out = names, normed.cpu().numpy(), voiced.cpu().numpy(), n_frames.cpu().numpy()
+        yield out
 
 
 def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
@@ -134,13 +136,14 @@ def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
     else:
         ids = sorted(audio, key=lambda u: (len(audio[u]), u))
     for i in range(0, len(ids), batch_size):
-        chunk = [(u, np.asarray(audio[u])) for u in ids[i:i + batch_size]]
-        pad_len = _shape_bucket(max(len(x) for _, x in chunk), pad_grid)
-        samples = np.zeros((len(chunk), pad_len), np.float32)
-        lengths = np.zeros((len(chunk),), np.int32)
-        for b, (_, x) in enumerate(chunk):
-            samples[b, :len(x)] = x
-            lengths[b] = len(x)
+        with span("frontend.pad"):
+            chunk = [(u, np.asarray(audio[u])) for u in ids[i:i + batch_size]]
+            pad_len = _shape_bucket(max(len(x) for _, x in chunk), pad_grid)
+            samples = np.zeros((len(chunk), pad_len), np.float32)
+            lengths = np.zeros((len(chunk),), np.int32)
+            for b, (_, x) in enumerate(chunk):
+                samples[b, :len(x)] = x
+                lengths[b] = len(x)
         yield [u for u, _ in chunk], samples, lengths
 
 
@@ -160,9 +163,11 @@ def iter_features_nosil(
         audio, fe, vad, cmvn, key, batch_size
     ):
         for b, utt_id in enumerate(utt_ids):
-            v = voiced[b].astype(bool)
-            if v.any():
-                yield utt_id, normed[b][v]
+            with span("frontend.select"):
+                v = voiced[b].astype(bool)
+                kept = normed[b][v] if v.any() else None
+            if kept is not None:
+                yield utt_id, kept
 
 
 def prepare_features_nosil(
@@ -176,8 +181,12 @@ def prepare_features_nosil(
 ) -> Dict[str, np.ndarray]:
     """MFCC -> VAD -> sliding CMVN -> voiced-frame compaction, batched
     over length-bucketed utterances.  Returns utt_id -> (T_voiced,
-    num_ceps) float32: the `_nosil` features every neural recipe uses."""
-    return dict(iter_features_nosil(audio, frontend, vad, cmvn, key, batch_size, device))
+    num_ceps) float32: the `_nosil` features every neural recipe uses.
+    The call is the span ``frontend`` (`utils.logging`); each batch's
+    padding and read back (``frontend.pad``, ``frontend.readback``) and each
+    utterance's voiced selection (``frontend.select``) are spans in it."""
+    with span("frontend"):
+        return dict(iter_features_nosil(audio, frontend, vad, cmvn, key, batch_size, device))
 
 
 @dataclasses.dataclass

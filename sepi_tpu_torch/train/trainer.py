@@ -50,6 +50,7 @@ from ..models.tdnn import batch_moments, lecun_normal_init, sync_batch_norm
 from ..parallel.mesh import (batch_sharded, broadcast_state, data_group, local_shard,
                              reduce_sum_, superbatch_sharded)
 from ..graphs import CallGraphs
+from ..utils.logging import span
 from .graphs import StepGraphs, eager_superstep
 from .graphs import state_tensors as _state_tensors
 from .optim import OptimizerChain, apply_updates, global_norm
@@ -360,14 +361,15 @@ class Trainer:
     def _run_valid(self, n: int):
         if not self.valid_batches or not self.eval_steps:
             return
-        for vb in self.valid_batches:
-            ev = self.eval_steps.get(vb.task)
-            if ev is None:
-                continue
-            m = {k: float(v) for k, v in ev(self.state, vb.feats, vb.labels).items()}
-            self.history.append((n, f"valid:{vb.task}", m))
-            if self.logger:
-                self.logger(n, f"valid:{vb.task}", m)
+        with span("train.eval"):
+            for vb in self.valid_batches:
+                ev = self.eval_steps.get(vb.task)
+                if ev is None:
+                    continue
+                m = {k: float(v) for k, v in ev(self.state, vb.feats, vb.labels).items()}
+                self.history.append((n, f"valid:{vb.task}", m))
+                if self.logger:
+                    self.logger(n, f"valid:{vb.task}", m)
 
     def _record(self, n: int, task: str, metrics: Dict) -> None:
         m = {k: float(v) for k, v in metrics.items()}
@@ -448,14 +450,29 @@ class Trainer:
             yield (kind, task, assemble_global_batch(f, self.mesh, spec),
                    assemble_global_batch(l, self.mesh, spec), w, k)
 
+    @staticmethod
+    def _planned(units):
+        """The units one by one, each pull (the wait on the batch stream
+        and the stacking of a superstep's batches) timed as ``train.plan``."""
+        units = iter(units)
+        while True:
+            with span("train.plan"):
+                u = next(units, None)
+            if u is None:
+                return
+            yield u
+
     def _stage_local(self, units):
         dev = self._device()
         depth = self.device_prefetch
+        units = self._planned(units)
         if dev.type != "cuda":
             for kind, task, f, l, w, k in units:
-                yield (kind, task, torch.from_numpy(np.asarray(f)).to(dev),
-                       torch.from_numpy(np.asarray(l)).to(dev),
-                       torch.as_tensor(np.asarray(w, np.float32), device=dev), k)
+                with span("train.stage"):
+                    staged = (kind, task, torch.from_numpy(np.asarray(f)).to(dev),
+                              torch.from_numpy(np.asarray(l)).to(dev),
+                              torch.as_tensor(np.asarray(w, np.float32), device=dev), k)
+                yield staged
             return
         copy_stream = torch.cuda.Stream(device=dev)
 
@@ -474,9 +491,10 @@ class Trainer:
 
         q: collections.deque = collections.deque()
         for kind, task, f, l, w, k in units:
-            tensors = (put(f), put(l), put(np.asarray(w, np.float32)))
-            done = torch.cuda.Event()
-            done.record(copy_stream)
+            with span("train.stage"):
+                tensors = (put(f), put(l), put(np.asarray(w, np.float32)))
+                done = torch.cuda.Event()
+                done.record(copy_stream)
             q.append((kind, task, *tensors, k, done))
             if len(q) > depth:
                 yield ready(q.popleft())
@@ -484,43 +502,56 @@ class Trainer:
             yield ready(q.popleft())
 
     def run(self, batch_iter: Iterable, num_steps: Optional[int] = None) -> TrainState:
-        n = 0
-        base = self.steps_done
+        """Train on ``batch_iter`` for ``num_steps`` steps (or until it ends).
+        The run is the span ``train``; inside it each unit's pull
+        (``train.plan``), staging (``train.stage``) and step or superstep
+        call (``train.dispatch``), the log-boundary reads (``train.log``)
+        and the held-out evaluation (``train.eval``) are spans of their own."""
+        with span("train"):
+            n = 0
+            base = self.steps_done
 
-        def crossed(prev: int, cur: int, every: int) -> bool:
-            return prev // every != cur // every
+            def crossed(prev: int, cur: int, every: int) -> bool:
+                return prev // every != cur // every
 
-        for kind, task, feats, labels, weight, k in self._stage(
-            self._units(batch_iter, num_steps)
-        ):
-            if kind == "super":
-                metrics = self.supersteps[task](self.state, feats, labels, weight)
-                prev, n = n, n + k
-                last = num_steps is not None and n >= num_steps
-                if crossed(prev, n, self.log_every) or last:
-                    # guard every step of the superstep, and record the
-                    # last value with the block mean
-                    vals = {m: v.cpu().numpy() for m, v in metrics.items()}
-                    objf = vals.get("objf")
-                    if objf is not None and not np.all(np.isfinite(objf)):
-                        bad = int(np.argmax(~np.isfinite(np.ravel(objf))))
-                        raise RuntimeError(
-                            f"training diverged: non-finite objective inside superstep "
-                            f"ending at step {base + n} (task {task}, step {bad + 1}/{k})"
-                        )
-                    rec = {m: float(np.ravel(v)[-1]) for m, v in vals.items()}
-                    rec.update({f"{m}_mean": float(v.mean()) for m, v in vals.items()})
-                    self._record(base + n, task, rec)
-            else:
-                metrics = self.steps[task](self.state, feats, labels, weight)
-                prev, n = n, n + 1
-                last = num_steps is not None and n >= num_steps
-                if n % self.log_every == 0 or last:
-                    self._record(base + n, task, metrics)
-            if crossed(prev, n, self.eval_every) or last:
-                self._run_valid(base + n)
-            if num_steps is not None and n >= num_steps:
-                break
-        self.steps_done = base + n
+            for kind, task, feats, labels, weight, k in self._stage(
+                self._units(batch_iter, num_steps)
+            ):
+                if kind == "super":
+                    with span("train.dispatch"):
+                        metrics = self.supersteps[task](self.state, feats, labels, weight)
+                    prev, n = n, n + k
+                    last = num_steps is not None and n >= num_steps
+                    if crossed(prev, n, self.log_every) or last:
+                        with span("train.log"):
+                            self._record_superstep(base + n, task, k, metrics)
+                else:
+                    with span("train.dispatch"):
+                        metrics = self.steps[task](self.state, feats, labels, weight)
+                    prev, n = n, n + 1
+                    last = num_steps is not None and n >= num_steps
+                    if n % self.log_every == 0 or last:
+                        with span("train.log"):
+                            self._record(base + n, task, metrics)
+                if crossed(prev, n, self.eval_every) or last:
+                    self._run_valid(base + n)
+                if num_steps is not None and n >= num_steps:
+                    break
+            self.steps_done = base + n
         return self.state
+
+    def _record_superstep(self, n: int, task: str, k: int, metrics: Dict) -> None:
+        """Guard every step of a superstep ending at step ``n``, and record
+        the last value with the block mean."""
+        vals = {m: v.cpu().numpy() for m, v in metrics.items()}
+        objf = vals.get("objf")
+        if objf is not None and not np.all(np.isfinite(objf)):
+            bad = int(np.argmax(~np.isfinite(np.ravel(objf))))
+            raise RuntimeError(
+                f"training diverged: non-finite objective inside superstep "
+                f"ending at step {n} (task {task}, step {bad + 1}/{k})"
+            )
+        rec = {m: float(np.ravel(v)[-1]) for m, v in vals.items()}
+        rec.update({f"{m}_mean": float(v.mean()) for m, v in vals.items()})
+        self._record(n, task, rec)
 

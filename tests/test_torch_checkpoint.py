@@ -172,8 +172,9 @@ def test_parameter_progress_matches_reference(jax_run):
 
 def test_profile_and_metrics_logger_write_their_records(tmp_path):
     """TrainConfig(profile=True) writes one torch.profiler trace per
-    checkpoint segment next to the checkpoint directory; MetricsLogger
-    appends one json record per call."""
+    checkpoint segment next to the checkpoint directory, in which the
+    program's spans name the Trainer's layers; MetricsLogger appends one
+    json record per call."""
     import json
 
     from sepi_tpu_torch.utils import MetricsLogger
@@ -187,6 +188,8 @@ def test_profile_and_metrics_logger_write_their_records(tmp_path):
     for seg in ("seg0-2", "seg2-4"):
         trace = json.loads((tmp_path / "profile" / seg / "trace.json").read_text())
         assert trace["traceEvents"]
+        names = {e.get("name") for e in trace["traceEvents"]}
+        assert {"sepi.train", "sepi.train.dispatch", "sepi.train.log"} <= names
     recs = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [(r["step"], r["task"]) for r in recs] == [(2, "xvec"), (2, "progress"),
                                                       (4, "xvec"), (4, "progress")]
