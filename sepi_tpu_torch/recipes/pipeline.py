@@ -65,7 +65,7 @@ from ..train import (
     save_checkpoint,
 )
 from ..train.checkpoint import latest_checkpoint, parameter_progress
-from ..utils.logging import profile, span
+from ..utils.logging import count, profile, span
 
 
 def _shape_bucket(n: int, grid: int, growth: float = 1.3) -> int:
@@ -103,12 +103,18 @@ def _frontend_batches(
 
     On a CUDA device the chain is one CUDA graph replay per padded batch
     (`graphs.CallGraphs`: a graph per batch shape, dithered or not, kept
-    for the generator's life; the host batch comes in through a pinned
-    staging buffer), the counterpart of the reference's jitted frontend,
-    VAD and CMVN; ``capture=False`` runs it eagerly.
+    for the generator's life), the counterpart of the reference's jitted
+    frontend, VAD and CMVN; ``capture=False`` runs it eagerly.  There a
+    batch is packed in place into pinned host memory (`padded_audio_batches`
+    with ``pinned``), copied once to the device, and its outputs are read
+    back into pinned memory: the arrays yielded are views of pinned blocks
+    that go back to torch's caching host allocator with them, so a caller
+    copies out what it keeps.  The counter ``frontend.staged_bytes`` adds
+    the bytes each batch stages so, in and out.
     """
     dither_on = fe.cfg.dither != 0.0
     salt = int(key) if (key is not None and dither_on) else 0
+    staged = fe.device.type == "cuda"
 
     def chain(samples, lengths, seeds=None):
         feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
@@ -118,19 +124,49 @@ def _frontend_batches(
         return sliding_cmvn(feats, mask, cmvn), voiced, mask.sum(-1)
 
     run = CallGraphs(chain, capture=capture, device=fe.device)
-    for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid):
+    for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid,
+                                                        pinned=staged):
         seeds = [utt_seeds(names, base_seed=salt)] if dither_on else []
-        normed, voiced, n_frames = run(samples, lengths, *seeds)
+        if staged:
+            # The graph copies device to device from these.  Each non-blocking
+            # copy records its event on its pinned block, and the caching host
+            # allocator hands the block out again only once the copy is done.
+            inputs = [samples, lengths] + [torch.from_numpy(s).pin_memory() for s in seeds]
+            outs = run(*[t.to(fe.device, non_blocking=True) for t in inputs])
+        else:
+            outs = run(samples, lengths, *seeds)
         with span("frontend.readback"):
-            out = names, normed.cpu().numpy(), voiced.cpu().numpy(), n_frames.cpu().numpy()
+            if staged:
+                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
+                for h, t in zip(host, outs):
+                    h.copy_(t, non_blocking=True)
+                torch.cuda.current_stream(fe.device).synchronize()
+                count("frontend.staged_bytes", sum(t.nbytes for t in inputs + host))
+            else:
+                host = [t.cpu() for t in outs]
+            out = (names, *(h.numpy() for h in host))
         yield out
 
 
+def _pack_rows(chunk, rows: np.ndarray, lengths: np.ndarray) -> None:
+    """Write each (utt_id, samples) of ``chunk`` into its row of ``rows``
+    and its length into ``lengths``, zeroing only the row's tail past its
+    length: ``rows`` may hold a former batch's bytes."""
+    for b, (_, x) in enumerate(chunk):
+        rows[b, :len(x)] = x
+        rows[b, len(x):] = 0
+        lengths[b] = len(x)
+
+
 def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
-                         pad_grid: int = 4000):
+                         pad_grid: int = 4000, pinned: bool = False):
     """Length-sorted batches of ``batch_size`` utterances, zero-padded to a
     `_shape_bucket` of ``pad_grid`` samples: yields (utt_ids, samples (B, N)
-    float32, lengths (B,) int32) on the host."""
+    float32, lengths (B,) int32) on the host, as numpy arrays.  With
+    ``pinned`` (a CUDA frontend's batches) they are page-locked torch
+    tensors from torch's caching host allocator, packed in place: after
+    the first batches of each size every block comes from its cache, with
+    its pages resident."""
     if hasattr(audio, "num_samples"):
         ids = sorted(audio, key=lambda u: (audio.num_samples(u), u))
     else:
@@ -138,12 +174,14 @@ def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
     for i in range(0, len(ids), batch_size):
         with span("frontend.pad"):
             chunk = [(u, np.asarray(audio[u])) for u in ids[i:i + batch_size]]
-            pad_len = _shape_bucket(max(len(x) for _, x in chunk), pad_grid)
-            samples = np.zeros((len(chunk), pad_len), np.float32)
-            lengths = np.zeros((len(chunk),), np.int32)
-            for b, (_, x) in enumerate(chunk):
-                samples[b, :len(x)] = x
-                lengths[b] = len(x)
+            shape = (len(chunk), _shape_bucket(max(len(x) for _, x in chunk), pad_grid))
+            if pinned:
+                samples = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+                lengths = torch.empty(shape[:1], dtype=torch.int32, pin_memory=True)
+                _pack_rows(chunk, samples.numpy(), lengths.numpy())
+            else:
+                samples, lengths = np.empty(shape, np.float32), np.empty(shape[:1], np.int32)
+                _pack_rows(chunk, samples, lengths)
         yield [u for u, _ in chunk], samples, lengths
 
 
@@ -223,7 +261,7 @@ def prepare_features_phonetic(
     ):
         for b, utt_id in enumerate(utt_ids):
             n = int(n_frames[b])
-            f = normed[b, :n]
+            f = normed[b, :n].copy()  # not a view: a CUDA frontend's batch is pinned
             v = voiced[b, :n].astype(bool)
             full[utt_id] = f
             voiced_out[utt_id] = v

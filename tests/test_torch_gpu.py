@@ -1018,6 +1018,49 @@ def test_captured_frontend_chain_equals_eager_on_the_card(deterministic_cudnn):
             assert g[0] == w[0] and all(np.array_equal(a, b) for a, b in zip(g[1:], w[1:]))
 
 
+def test_frontend_batches_staged_in_pinned_memory_on_the_card(deterministic_cudnn):
+    """Two dithered frontend calls in a row on the same audio, each batch
+    packed in place into pinned blocks that the second call takes again from
+    torch's caching host allocator: bit-equal to each other and to
+    capture=False; ``frontend.staged_bytes`` counts each batch's samples,
+    lengths and seeds in and its three outputs out; the phonetic stream's
+    arrays own their memory."""
+    from sepi_tpu_torch.config import CmvnConfig, VadConfig
+    from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.recipes.pipeline import (_frontend_batches, padded_audio_batches,
+                                                 prepare_features_phonetic)
+    from sepi_tpu_torch.utils import logging as L
+
+    dev = deterministic_cudnn
+    rng = np.random.default_rng(10)
+    audio = {f"a{i}": (rng.standard_normal(n) * 1000).astype(np.float32)
+             for i, n in enumerate(rng.integers(9000, 41000, 14))}
+    fe = FeatureExtractor(FrontendConfig(), dev)
+
+    def batches(capture=None):  # copied out batch by batch, as every caller does
+        return [(names, *(np.array(a) for a in arrays)) for names, *arrays in
+                _frontend_batches(audio, fe, VadConfig(), CmvnConfig(), 3, 4, capture=capture)]
+
+    first = batches()
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    allocs = stats().get("num_host_alloc") if stats else None
+    L.reset()
+    second = batches()
+    staged = L.counters()["frontend.staged_bytes"]
+    if allocs is not None:
+        assert stats()["num_host_alloc"] == allocs  # every block from the cache
+    want = batches(capture=False)
+    for a, b, w in zip(first, second, want):
+        assert a[0] == b[0] == w[0]
+        assert all(np.array_equal(x, y) and np.array_equal(x, z)
+                   for x, y, z in zip(a[1:], b[1:], w[1:]))
+    padded = [s.nbytes + 2 * l.nbytes for _, s, l in padded_audio_batches(audio, 4)]
+    assert staged == sum(padded) + sum(x.nbytes for g in second for x in g[1:])
+    pf = prepare_features_phonetic(audio, FrontendConfig(), key=3, batch_size=4, device=dev)
+    for out in (pf.full, pf.voiced, pf.nosil):
+        assert all(a.base is None for a in out.values())
+
+
 def test_captured_eval_step_and_bench_programs_on_the_card(deterministic_cudnn):
     """The eval step and the bench's scoring program replayed, bit-equal to
     the eager calls."""
