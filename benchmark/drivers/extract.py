@@ -58,7 +58,7 @@ def run(ctx: RunContext) -> Outcome:
     from sepi_tpu_torch.device import fp32_math
     from sepi_tpu_torch.recipes.pipeline import extract_and_score, prepare_features_nosil
 
-    cfg, tr, dev = ctx.cell.config, ctx.cell.traffic, ctx.device
+    cfg, tr, dev, kind = ctx.cell.config, ctx.cell.traffic, ctx.device, ctx.cell.model
     spans = Spans(record=ctx.trace)
     marks = Marks(ctx)
     e = serving.embedder(ctx)
@@ -118,7 +118,7 @@ def run(ctx: RunContext) -> Outcome:
             n = len(pool[j])
             audio_s, samples = audio_s + n / sr, samples + n
             frames += num_frames(n, cfg["frontend"])
-        embed_work += sum(embed_flops(cfg, l) for v in voiced.values()
+        embed_work += sum(embed_flops(cfg, l, kind) for v in voiced.values()
                           for _, l in chunks(v, cfg["extract"]))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     del e.model
@@ -138,10 +138,10 @@ def run(ctx: RunContext) -> Outcome:
             if name not in embs:
                 gaps["ref"].append(float("inf"))
                 continue
-            want = embedding(pool[j], name, e.params, cfg, dev, "ref")
+            want = embedding(pool[j], name, e.params, cfg, dev, "ref", model=kind)
             gaps["ref"].append(rel_gap(embs[name], want))
             for prec in ctx.controls:
-                ctl = embedding(pool[j], name, e.params, cfg, dev, prec)
+                ctl = embedding(pool[j], name, e.params, cfg, dev, prec, model=kind)
                 gaps[prec].append(rel_gap(ctl.double().cpu().numpy(), want))
     ref_s = time.perf_counter() - t_ref
     checks = [Check("embedding_rel_gap", max(gaps["ref"]), limit(ctx.cell, "embedding_rel_gap"))]

@@ -1,43 +1,43 @@
-"""Training the combined c-vector: interleaved am and xvec supersteps.
+"""Training a speaker network through the port's Trainer, for any model
+kind with a ``train`` section.
 
-Training is assembled by the recipe's own functions, as
-`recipes/phonetic._two_task_run` assembles it: the held-out split and
-batches (`phonetic._heldout_valid`), the two samplers, their
-`MultitaskInterleaver` with blocks of K and the step budget
-(`phonetic._multitask_iter`), `build_optimizer` with the ``am``
-learning-rate factor, the reference's probe batch and calibration draws,
-`make_am_step`/`make_xvec_step`, `make_task_supersteps`, `batch_iterator`
-(prefetch thread) and a `Trainer` that logs every 50 steps and evaluates
-the held-out batches every 100, under `fp32_math` as
-`train_combined_model` runs.  The benchmark adds only what it measures
-with: a `Recorder` around each superstep the Trainer calls, the window's
-deadline (`until`) and seeded weights.  The model is the configuration's
-`CombinedCVector` in bf16 with weights made from the seed on the device
-and its ``am`` subtree grafted (`graft_subtree`) from an `AmNet` made
-from the seed.  The data lives in host memory, made from the seed:
-speakers x utterances x frames of 23-dim features (a speaker offset plus
-noise) and random senone alignments.  No checkpoints.
+Training is assembled by the model kind's ``train_setup``
+(`benchmark/models/<model>.py`) as its recipe assembles it: the combined
+c-vector's interleaved am and xvec supersteps as
+`recipes/phonetic._two_task_run` does (`phonetic._heldout_valid`,
+`phonetic._multitask_iter`, the ``am`` learning-rate factor, the am
+subtree grafted from a seeded `AmNet`), the x-vector's one ``xvec`` task
+as `recipes/pipeline.train_xvector_model` does.  The driver then builds
+`make_task_supersteps`, `batch_iterator` (prefetch thread) and a `Trainer`
+that logs every 50 steps and evaluates the held-out batches every 100,
+under `fp32_math` as the recipes run.  The benchmark adds only what it
+measures with: a `Recorder` around each superstep the Trainer calls, the
+window's deadline (`until`) and seeded weights made on the device.  The
+data lives in host memory, made from the seed: speakers x utterances x
+frames of 23-dim features (a speaker offset plus noise) and, for a model
+with senones, random senone alignments.  No checkpoints.
 
 Set-up takes the Trainer through its first supersteps on the feed until
-both tasks have run one (the checked units), then runs the superstep of
+every task has run one (the checked units), then runs the superstep of
 every chunk bucket not yet met on batches of a sampler of its own, so
-the window captures nothing.  The window is one `Trainer.run` over the
-feed that stops at the first block boundary after the window's seconds;
-it ends when that run returns and the card is idle.  End to end: the
-window's milliseconds over the steps the Trainer completed in it.
+the window meets no shape for the first time.  The window is one
+`Trainer.run` over the feed that stops at the first block boundary after
+the window's seconds; it ends when that run returns and the card is idle.
+End to end: the window's milliseconds over the steps the Trainer
+completed in it.
 
 ``correct``: checked units are followed by the plain reference
-(`reference.train`) from the program's state before each, on the same
-batch: forward, loss, backward and the optimizer chain (`compare`).  A
-superstep shows its state only between units, so the reference follows
-the program unit by unit from its own state.  The checked units are
-set-up's (the first ``check.units`` units of the feed, each task among
-them, from the seeded state) and, once the window has closed, the
-window's: the Trainer goes on from the window's final state over the
-same feed until both tasks have run a unit, then the superstep the
-Trainer calls runs once on every chunk bucket not among them, so every
-captured superstep the window replayed is compared at the state the
-window left.
+(`reference.train`, with the model kind's ``forward_train``) from the
+program's state before each, on the same batch: forward, loss, backward
+and the optimizer chain (`compare`).  A superstep shows its state only between
+units, so the reference follows the program unit by unit from its own
+state.  The checked units are set-up's (the first ``check.units`` units
+of the feed, each task among them, from the seeded state) and, once the
+window has closed, the window's: the Trainer goes on from the window's
+final state over the same feed until every task has run a unit, then
+the superstep the Trainer calls runs once on every chunk bucket not among
+them, so every superstep shape the window ran is compared at the state
+the window left.
 """
 
 from __future__ import annotations
@@ -49,33 +49,35 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from harness import audio, port
+from harness import audio
 from harness import weights as W
 from harness.core import Check, Marks, Outcome, RunContext, Spans, limit
 from harness.flops import train_forward_flops
 from harness.profiling import Window
+from harness.training import TrainInputs
 from reference import train as ref_train
-from reference.tdnn import param_names
 
-TASKS = {"am": {"task": "am"}, "xvec": {"task": "xvec"}}
 # the reference's arithmetic for the configuration's stated training precision
 REF_PRECISION = {"bfloat16": "bf16", "float32": "ref"}
 
 
 def make_data(tr: Dict, cfg: Dict, seed: int, dev: torch.device):
-    """{utt: (frames, D) float32}, {utt: (frames,) int32 senones}, Utterance rows."""
+    """{utt: (frames, D) float32}, {utt: (frames,) int32 senones} (none
+    for a model without senones), Utterance rows."""
     from sepi_tpu_torch.data.manifest import Utterance
 
     g = audio.generator(seed, dev)
     spk, per, t, d = tr["speakers"], tr["utts_per_speaker"], tr["frames_per_utt"], cfg["feat_dim"]
     offsets = torch.randn((spk, 1, 1, d), generator=g, device=dev)
     feats = (torch.randn((spk, per, t, d), generator=g, device=dev) + offsets).reshape(-1, t, d)
-    ali = torch.randint(0, cfg["num_senones"], (spk * per, t), generator=g, device=dev,
-                        dtype=torch.int32)
-    feats, ali = feats.cpu().numpy(), ali.cpu().numpy()
     names = [f"spk{s:05d}-u{k}" for s in range(spk) for k in range(per)]
     utts = [Utterance(utt_id=n, spk_id=n.split("-")[0], num_frames=t) for n in names]
-    return dict(zip(names, feats)), dict(zip(names, ali)), utts
+    alignments = {}
+    if cfg.get("num_senones"):
+        ali = torch.randint(0, cfg["num_senones"], (spk * per, t), generator=g, device=dev,
+                            dtype=torch.int32)
+        alignments = dict(zip(names, ali.cpu().numpy()))
+    return dict(zip(names, feats.cpu().numpy())), alignments, utts
 
 
 class Recorder:
@@ -154,7 +156,7 @@ def checked_units(trainer, it, recorders, keep, state, sampler, frames, K, dev, 
     them recorded while ``keep`` records)."""
     for r in recorders.values():
         r.keep = keep
-    while len(keep) < units or {r["task"] for r in keep} != set(TASKS):
+    while len(keep) < units or {r["task"] for r in keep} != set(recorders):
         trainer.run(it, num_steps=K)
     xvec = recorders["xvec"]
     for b in frames:
@@ -167,13 +169,10 @@ def run(ctx: RunContext) -> Outcome:
     from sepi_tpu_torch.data.manifest import Dataset
     from sepi_tpu_torch.data.sampler import ChunkSampler
     from sepi_tpu_torch.device import fp32_math
-    from sepi_tpu_torch.models import AmNet
-    from sepi_tpu_torch.recipes import phonetic
     from sepi_tpu_torch.recipes.pipeline import batch_iterator, make_task_supersteps
-    from sepi_tpu_torch.train import (Trainer, TrainState, build_optimizer, graft_subtree,
-                                      make_am_step, make_eval_step, make_xvec_step)
+    from sepi_tpu_torch.train import Trainer
 
-    cfg, tr, dev = ctx.cell.config, ctx.cell.traffic, ctx.device
+    cfg, tr, dev, kind = ctx.cell.config, ctx.cell.traffic, ctx.device, ctx.cell.model
     tc = cfg["train"]
     marks = Marks(ctx)
     spans = Spans(record=ctx.trace)
@@ -181,68 +180,45 @@ def run(ctx: RunContext) -> Outcome:
     seed = ctx.sub_seed(6) % (1 << 31)
     train_cfg = TrainConfig(
         optimizer=OptimizerConfig(**tc["optimizer"]), chunks=ChunkConfig(**tc["chunks"]),
-        batch_size=tc["batch_size"], am_batch_size=tc["am_batch_size"],
+        batch_size=tc["batch_size"],
+        **({"am_batch_size": tc["am_batch_size"]} if "am_batch_size" in tc else {}),
         compute_dtype="bfloat16" if tc["precision"] == "bfloat16" else "float32", seed=seed,
         steps_per_dispatch=K, prefetch=tc["prefetch"])
     if tr["speakers"] != cfg["num_speakers"]:
         raise ValueError(f"{tr['speakers']} speakers in the mix, {cfg['num_speakers']} outputs")
-    am_context = port.am_context(cfg)
     features, alignments, utts = make_data(tr, cfg, ctx.sub_seed(7), dev)
     dataset = Dataset(utts, "train")
     marks("data")
-
-    # the recipe's assembly (phonetic._two_task_run), in its order of draws
-    label_map = dataset.speaker_label_map()
-    train_ds, feats_tr, ali_tr, valid_batches = phonetic._heldout_valid(
-        features, alignments, dataset, train_cfg, None, am_context, tc["frames_per_eg"])
     num_steps = tr["num_steps"]
-    _, xvec_sampler, interleaver = phonetic._multitask_iter(
-        feats_tr, ali_tr, train_ds, train_cfg, am_context, num_steps, tc["frames_per_eg"],
-        label_map=label_map)
-    tx, _ = build_optimizer(train_cfg.optimizer, num_steps, lr_factors={"am": tc["am_lr_factor"]})
-    xvec_sampler.sample_batch(xvec_sampler.buckets[0])  # the reference's probe batch
 
-    # the model: seeded weights on the device, the am subtree grafted
-    params = W.make(param_names(cfg), ctx.sub_seed(1), dev)
-    am_shapes = {n[len("am."):]: s for n, s in param_names(cfg).items() if n.startswith("am.")}
-    am_params = W.make(am_shapes, ctx.sub_seed(8), dev)
     with fp32_math():
-        model = port.seeded_model(cfg, params, dev, train_cfg.compute_dtype)
-        with torch.device(dev):
-            am_net = AmNet(port.am_config(cfg), with_logits=False, dtype=train_cfg.compute_dtype)
-        W.load_into(am_net, am_params)
-        state = TrainState(model, tx.init(dict(model.named_parameters())), 0)
-        graft_subtree(state.model, am_net, "am")
-        del am_net
-        ref_init = {n: (am_params[n[len("am."):]] if n.startswith("am.") else params[n])
-                    for n, _ in model.named_parameters()}
-        steps = {t: (make_am_step if t == "am" else make_xvec_step)(tx, kw)
-                 for t, kw in TASKS.items()}
-        [xvec_sampler.sample_batch(b).feats for b in xvec_sampler.buckets[:3]]  # calibration draws
-        eval_steps = ({t: make_eval_step(kw) for t, kw in TASKS.items()}
-                      if valid_batches else None)
+        # the recipe's assembly, in its order of draws; the weights from the seed
+        asm = kind.train_setup(TrainInputs(
+            kind, cfg, train_cfg, features, alignments, dataset, num_steps, dev,
+            lambda shapes, tag: W.make(shapes, ctx.sub_seed(tag), dev, kind)))
+        state = asm.state
         keep = Kept()
-        supersteps = make_task_supersteps(tx, TASKS, train_cfg)
-        recorders = {t: Recorder(t, (supersteps or steps)[t], keep, single=supersteps is None)
-                     for t in TASKS}
-        trainer = Trainer(steps=recorders if supersteps is None else steps, state=state,
-                          log_every=tc["log_every"], valid_batches=valid_batches,
-                          eval_steps=eval_steps, eval_every=tc["eval_every"],
+        supersteps = make_task_supersteps(asm.tx, asm.tasks, train_cfg)
+        recorders = {t: Recorder(t, (supersteps or asm.steps)[t], keep,
+                                 single=supersteps is None) for t in asm.tasks}
+        trainer = Trainer(steps=recorders if supersteps is None else asm.steps, state=state,
+                          log_every=tc["log_every"], valid_batches=asm.valid_batches,
+                          eval_steps=asm.eval_steps, eval_every=tc["eval_every"],
                           supersteps=None if supersteps is None else recorders,
                           steps_per_dispatch=K)
-        it = batch_iterator(iter(interleaver), train_cfg)
+        it = batch_iterator(asm.feed, train_cfg)
         try:
             marks("model")
             # set-up: the checked units from the feed, then every bucket's superstep
-            warm = ChunkSampler(feats_tr, train_ds, train_cfg.chunks, train_cfg.batch_size,
-                                seed + 2, label_map=label_map)
+            warm = ChunkSampler(asm.train_feats, asm.train_ds, train_cfg.chunks,
+                                train_cfg.batch_size, seed + 2, label_map=asm.label_map)
             checked_units(trainer, it, recorders, keep, state, warm, (), K, dev,
                           tr["check"]["units"])
             keep.recording = False
             marks("checked units")
             checked_units(trainer, it, recorders, keep, state, warm, warm.buckets, K, dev)
-            for vb in valid_batches or ():
-                eval_steps[vb.task](state, vb.feats, vb.labels)
+            for vb in asm.valid_batches or ():
+                asm.eval_steps[vb.task](state, vb.feats, vb.labels)
             marks("warm-up")
             for r in recorders.values():
                 r.units.clear()
@@ -265,14 +241,15 @@ def run(ctx: RunContext) -> Outcome:
         finally:
             if hasattr(it, "close"):
                 it.close()
-    flops = sum(3.0 * k * train_forward_flops(cfg, t, b, f) for t, k, b, f in units)
-    del trainer, state, model, recorders, it, supersteps, steps
+    flops = sum(3.0 * k * train_forward_flops(cfg, t, b, f, kind) for t, k, b, f in units)
+    ref_init, lr_factors = asm.ref_init, asm.lr_factors
+    del trainer, state, recorders, it, supersteps, asm
     gc.collect()
 
     t_ref = time.perf_counter()
     ref_prec = REF_PRECISION[tc["precision"]]
     readings = compare(keep, post, ref_init, cfg, tc, num_steps, dev, ref_prec,
-                       tuple(ctx.controls))
+                       tuple(ctx.controls), kind, lr_factors)
     ref_s = time.perf_counter() - t_ref
     got = readings[ref_prec]
     checks = [Check(n, got[n], limit(ctx.cell, n)) for n in ctx.cell.limits["limits"]]
@@ -284,7 +261,7 @@ def run(ctx: RunContext) -> Outcome:
                    steps_done, 0, checks, window_s, setup_s, int(peak), work, spans, win.summary)
 
 
-def trajectory(rec: Dict, chain, cfg: Dict, dev, variant: str) -> Dict:
+def trajectory(rec: Dict, chain, cfg: Dict, dev, variant: str, kind) -> Dict:
     """The reference over one checked unit from the program's state before
     it, on the same batch: each step's objf and gradient norm, the first
     step's gradients, and for a unit the program kept the state after, the
@@ -304,7 +281,7 @@ def trajectory(rec: Dict, chain, cfg: Dict, dev, variant: str) -> Dict:
     out = {"objf": [], "grad_norm": [], "grads": None}
     for k in range(feats.shape[0] if "after" in rec else 1):
         r = ref_train.step(params, state, chain, feats[k], labels[k], float(weights[k]),
-                           rec["task"], cfg, prec)
+                           rec["task"], cfg, prec, kind.forward_train)
         out["grads"] = out["grads"] or r["grads"]
         out["objf"].append(r["objf"])
         out["grad_norm"].append(r["grad_norm"])
@@ -329,7 +306,7 @@ def family(name: str) -> str:
 
 
 def compare(keep: List, post: List, ref_init: Dict, cfg: Dict, tc: Dict, num_steps: int, dev,
-            ref_prec: str, controls: tuple) -> Dict[str, Dict]:
+            ref_prec: str, controls: tuple, kind, lr_factors: Dict) -> Dict[str, Dict]:
     """The numbers compared, for the program and for each control put in
     its place, each against the reference (``ref_prec``) from the same
     state on the same batch.  Over set-up's units (``keep``): the first
@@ -340,7 +317,7 @@ def compare(keep: List, post: List, ref_init: Dict, cfg: Dict, tc: Dict, num_ste
     norm (``window_*_rel_gap``) and the median leaves of the first unit of
     each task (``window_*_median_leaf_gap``).  Each unit's later steps,
     worst leaf and median leaf of each family go to ``detail``."""
-    chain = ref_train.Chain(tc["optimizer"], num_steps, {"am": tc["am_lr_factor"]})
+    chain = ref_train.Chain(tc["optimizer"], num_steps, lr_factors)
     out = {v: {"start_gap": 0.0} for v in (ref_prec,) + controls}
     for v in out:
         out[v]["detail"] = []
@@ -348,7 +325,7 @@ def compare(keep: List, post: List, ref_init: Dict, cfg: Dict, tc: Dict, num_ste
         pre = "" if group == "first" else "window_"
         gaps = {v: {"loss": [], "grad_norm": [], "moment": [], "change": []} for v in out}
         for rec in recs:
-            ref = trajectory(rec, chain, cfg, dev, ref_prec)
+            ref = trajectory(rec, chain, cfg, dev, ref_prec, kind)
             moving = start = None
             if "after" in rec:
                 norms = {n: float(g.double().norm()) for n, g in ref["grads"].items()}
@@ -357,7 +334,7 @@ def compare(keep: List, post: List, ref_init: Dict, cfg: Dict, tc: Dict, num_ste
                 start = {n: p.to(dev).double() for n, p in rec["before"]["params"].items()}
             for v in out:
                 got = program_side(rec, dev) if v == ref_prec else \
-                    trajectory(rec, chain, cfg, dev, v)
+                    trajectory(rec, chain, cfg, dev, v, kind)
                 n_steps = len(ref["objf"])
                 loss = [abs(got["objf"][k] - ref["objf"][k]) / abs(ref["objf"][k])
                         for k in range(n_steps)]
@@ -367,7 +344,8 @@ def compare(keep: List, post: List, ref_init: Dict, cfg: Dict, tc: Dict, num_ste
                 gaps[v]["grad_norm"].append(gnorm[0])
                 unit = {"group": group, "task": rec["task"], "count": rec["before"]["count"],
                         "frames": int(rec["batch"][0].shape[2]), "loss": loss,
-                        "grad_norm": gnorm}
+                        "grad_norm": gnorm, "ref_objf": ref["objf"][0],
+                        "ref_grad_norm": ref["grad_norm"][0]}
                 if moving is not None:
                     if group == "first" and rec["before"]["count"] == 0:
                         out[v]["start_gap"] = max(

@@ -161,13 +161,15 @@ def run(ctx: RunContext) -> Outcome:
                     vec, be["mean"], be["projection"]), be["counts"][m], be["plda_mean"],
                     be["transform"], be["psi"])
 
-            want = embedding(pool[j], name, e.params, cfg, dev, "ref").cpu().numpy()
+            want = embedding(pool[j], name, e.params, cfg, dev, "ref",
+                             model=ctx.cell.model).cpu().numpy()
             want_s = score(want)
             for prec in ("ref",) + tuple(ctx.controls):
                 if prec == "ref":
                     got, got_s = np.asarray(emb, np.float64), s
                 else:
-                    got = embedding(pool[j], name, e.params, cfg, dev, prec).double().cpu().numpy()
+                    got = embedding(pool[j], name, e.params, cfg, dev, prec,
+                                    model=ctx.cell.model).double().cpu().numpy()
                     got_s = score(got)
                 gaps[prec]["emb"].append(float(np.linalg.norm(got - want) / np.linalg.norm(want)))
                 gaps[prec]["score"].append(abs(got_s - want_s))

@@ -6,9 +6,12 @@ harness finds them as files, by name alone:
 - ``benchmark/configs/<config>.json``: the model's sizes as run;
 - ``benchmark/traffic/<traffic>.json``: the mix's parameters, whose
   ``driver`` key names ``benchmark/drivers/<driver>.py``;
+- ``benchmark/models/<model>.py``: everything of one model kind, by the
+  configuration's ``model`` key (`model_kind`);
 - ``benchmark/limits/<cell>.json``: the limits of the numbers compared;
 - ``benchmark/metrics/<metric>.py``: one reader per per-layer metric.
-A later change adds a cell, a mix or a metric by adding files and entries.
+A later change adds a cell, a mix, a metric or a model kind by adding
+files and entries.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import math
 import time
 from pathlib import Path
 from types import ModuleType
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 REPO = BENCH_DIR.parent
@@ -43,6 +46,19 @@ def load_module(path: Path) -> ModuleType:
     return mod
 
 
+_KINDS: Dict[Path, ModuleType] = {}
+
+
+def model_kind(cfg: Mapping, root: Path = BENCH_DIR) -> ModuleType:
+    """The module of the configuration's model kind,
+    ``<root>/models/<model>.py``, loaded once; a kind with no file raises
+    `FileNotFoundError` naming the file."""
+    path = (Path(root) / "models" / f"{cfg['model']}.py").resolve()
+    if path not in _KINDS:
+        _KINDS[path] = load_module(path)
+    return _KINDS[path]
+
+
 def merge(base: Dict, over: Optional[Dict]) -> Dict:
     """``base`` with ``over``'s keys put in, nested dicts merged."""
     out = copy.deepcopy(base)
@@ -60,10 +76,16 @@ class Cell:
     config: Dict
     traffic: Dict
     limits: Dict
+    root: Path = BENCH_DIR
 
     @property
     def chips(self) -> int:
         return int(self.entry["chips"])
+
+    @property
+    def model(self) -> ModuleType:
+        """The module of the configuration's model kind (`model_kind`)."""
+        return model_kind(self.config, self.root)
 
 
 def find_cell(bench: Dict, name: str, root: Path = BENCH_DIR,
@@ -80,7 +102,7 @@ def find_cell(bench: Dict, name: str, root: Path = BENCH_DIR,
     traffic = merge(load_json(root / "traffic" / f"{entry['traffic']}.json"),
                     overrides.get("traffic"))
     limits = merge(load_json(root / "limits" / f"{name}.json"), overrides.get("limits"))
-    return Cell(name, entry, config, traffic, limits)
+    return Cell(name, entry, config, traffic, limits, Path(root))
 
 
 def driver_for(cell: Cell, root: Path = BENCH_DIR) -> ModuleType:

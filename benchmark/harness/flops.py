@@ -17,6 +17,8 @@ inputs need, whatever implements it, so no implementation can read over
   embedding does not need.
 - `train_forward_flops`: one training step's forward on a batch, all the
   way to the logits; the step's work is taken as 3x that.
+Both are the model kind's own (`benchmark/models/<model>.py`), built of
+`stack_flops` and the segment head's counts here.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from typing import Mapping, Sequence, Tuple
 import numpy as np
 
 from reference.frontend import frame_length, mel_banks, padded_window
-from reference.tdnn import context
 
 FLOAT_BYTES = 4
 
@@ -47,7 +48,7 @@ def mfcc_bytes(num_samples: int, num_frames: int, fcfg: Mapping) -> float:
     return float(FLOAT_BYTES * num_samples + num_frames * (FLOAT_BYTES * fcfg["num_ceps"] + 1))
 
 
-def _stack(layers: Sequence, in_dim: int, frames: int) -> Tuple[float, int, int]:
+def stack_flops(layers: Sequence, in_dim: int, frames: int) -> Tuple[float, int, int]:
     """(flops, output frames, output dim) of a stack on ``frames`` frames."""
     flops = 0.0
     for dim, offs in layers:
@@ -57,34 +58,32 @@ def _stack(layers: Sequence, in_dim: int, frames: int) -> Tuple[float, int, int]
     return flops, frames, in_dim
 
 
-def _trunk(cfg: Mapping, frames: int) -> Tuple[float, int, int]:
-    """The frame-level layers up to stats pooling: (flops, frames, dim)."""
-    arch, d = cfg["arch"], cfg["feat_dim"]
-    if cfg["model"] == "xvector":
-        return _stack(arch["frames"]["layers"], d, frames)
-    f_sh, t_sh, d_sh = _stack(arch["shared"]["layers"], d, frames)
-    f_xv, _, d_xv = _stack(arch["xvec_branch"]["layers"], d_sh, t_sh)
-    f_am, _, d_am = _stack(arch["am"]["layers"], d, frames)
-    xl, xr = context(arch["shared"]["layers"] + arch["xvec_branch"]["layers"])
-    al, ar = context(arch["am"]["layers"])
-    merged = frames - max(xl, al) - max(xr, ar)
-    f5 = 2.0 * max(merged, 0) * (d_xv + d_am) * cfg["pool_dim"]
-    return f_sh + f_xv + f_am + f5, merged, cfg["pool_dim"]
+def embed_head_flops(dim: int, cfg: Mapping) -> float:
+    """tdnn6's affine on the pooled statistics (2 x ``dim``) of one chunk."""
+    return 2.0 * 2 * dim * cfg["embed_dim"]
 
 
-def embed_flops(cfg: Mapping, frames: int) -> float:
-    f, _, dim = _trunk(cfg, frames)
-    return f + 2.0 * 2 * dim * cfg["embed_dim"]
-
-
-def train_forward_flops(cfg: Mapping, task: str, batch: int, frames: int) -> float:
-    """Forward flops of one step on ``batch`` examples of ``frames`` frames."""
-    arch, d = cfg["arch"], cfg["feat_dim"]
-    f_sh, t_sh, d_sh = _stack(arch["shared"]["layers"], d, frames)
-    if task == "am":
-        f_am, t_am, d_am = _stack(arch["am_branch"]["layers"], d_sh, t_sh)
-        return batch * (f_sh + f_am + 2.0 * t_am * d_am * cfg["num_senones"])
-    f, _, dim = _trunk(cfg, frames)
+def train_head_flops(dim: int, cfg: Mapping) -> float:
+    """One example's segment head, to the speaker logits: tdnn6, tdnn7,
+    the output layer."""
     e = cfg["embed_dim"]
-    head = 2.0 * (2 * dim * e + e * e + e * cfg["num_speakers"])
-    return batch * (f + head)
+    return 2.0 * (2 * dim * e + e * e + e * cfg["num_speakers"])
+
+
+def _kind(cfg: Mapping, kind):
+    if kind is None:
+        from .core import model_kind
+
+        kind = model_kind(cfg)
+    return kind
+
+
+def embed_flops(cfg: Mapping, frames: int, kind=None) -> float:
+    """Of the configuration's model kind (``kind``, by default found by
+    the configuration's ``model`` key)."""
+    return _kind(cfg, kind).embed_flops(cfg, frames)
+
+
+def train_forward_flops(cfg: Mapping, task: str, batch: int, frames: int, kind=None) -> float:
+    """Forward flops of one step on ``batch`` examples of ``frames`` frames."""
+    return _kind(cfg, kind).train_forward_flops(cfg, task, batch, frames)

@@ -1,6 +1,7 @@
 """What the extraction and verification drivers share: the program's
-configs and seeded model for an embedding configuration, and the warm-up
-of every bucket of the extraction ladder."""
+configs and seeded model for an embedding configuration (its weights
+named by the configuration's model kind), and the warm-up of every
+bucket of the extraction ladder."""
 
 from __future__ import annotations
 
@@ -8,8 +9,6 @@ import dataclasses
 from typing import Callable, Dict
 
 import torch
-
-from reference.tdnn import param_names
 
 from . import audio, port
 from . import weights as W
@@ -31,11 +30,11 @@ class Embedder:
 
 
 def embedder(ctx) -> Embedder:
-    cfg, dev = ctx.cell.config, ctx.device
-    params = W.make(param_names(cfg), ctx.sub_seed(1), dev)
+    cfg, dev, kind = ctx.cell.config, ctx.device, ctx.cell.model
+    params = W.make(kind.param_names(cfg), ctx.sub_seed(1), dev, kind)
     return Embedder(*port.frontend_configs(cfg), port.extract_config(cfg),
                     cfg["extract"]["min_frames"], port.model_kwargs(cfg), params,
-                    port.seeded_model(cfg, params, dev).eval())
+                    port.seeded_model(cfg, params, dev, kind=kind).eval())
 
 
 def warm_buckets(ctx, emb: Embedder, extract: Callable[[Dict], Dict]) -> None:

@@ -4,8 +4,8 @@
 the voiced features (`frontend.nosil_features`), cut into chunks by
 nnet3-xvector-compute's rule (chunks of min(chunk_size, T) frames, a
 trailing remnant below the minimum dropped; `extract_xvectors.sh`), each
-chunk's embedding (`tdnn.embed`) on its real frames alone, averaged
-weighted by chunk length.
+chunk's embedding (the model kind's ``embed``, `benchmark/models/`) on
+its real frames alone, averaged weighted by chunk length.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ import numpy as np
 import torch
 
 from .frontend import nosil_features, utt_seed
-from .tdnn import embed
 
 
 def chunks(num_frames: int, ext: Mapping) -> List[tuple]:
@@ -35,8 +34,10 @@ def chunks(num_frames: int, ext: Mapping) -> List[tuple]:
 
 
 def embedding(samples: np.ndarray, utt_id: str, params, cfg: Mapping, device,
-              prec: str = "ref", salt: int = 0) -> torch.Tensor:
-    """The float64 (or the control's) embedding of one utterance."""
+              prec: str = "ref", salt: int = 0, *, model) -> torch.Tensor:
+    """The float64 (or the control's) embedding of one utterance;
+    ``model`` is the configuration's model kind (`harness.core.model_kind`),
+    whose ``embed`` takes one chunk."""
     x = torch.from_numpy(np.ascontiguousarray(samples, np.float32)).to(device)
     feats, _ = nosil_features(x, utt_seed(utt_id, salt), cfg, prec)
     spans = chunks(feats.shape[0], cfg["extract"])
@@ -45,5 +46,5 @@ def embedding(samples: np.ndarray, utt_id: str, params, cfg: Mapping, device,
     total = sum(length for _, length in spans)
     acc = 0.0
     for off, length in spans:
-        acc = acc + length * embed(feats[off:off + length], params, cfg, prec).to(torch.float64)
+        acc = acc + length * model.embed(feats[off:off + length], params, cfg, prec).to(torch.float64)
     return acc / total

@@ -1,7 +1,9 @@
-"""Plain reference of the TDNN speaker networks: the x-vector (Snyder et
-al., ICASSP 2018; `egs/sre/v2` `run_xvector_new.sh:90-115`) and the
-combined c-vector (Liu et al., Interspeech 2018; `egs/sre/v5`
-`prepare_nnet3_xconfig.sh:46-91`, `train_cvector_with_am.sh:65-89`).
+"""Plain reference of the TDNN layers the speaker networks are built of:
+the x-vector (Snyder et al., ICASSP 2018; `egs/sre/v2`
+`run_xvector_new.sh:90-115`) and the combined c-vector (Liu et al.,
+Interspeech 2018; `egs/sre/v5` `prepare_nnet3_xconfig.sh:46-91`,
+`train_cvector_with_am.sh:65-89`), whose wiring is each in its model
+kind's file (`benchmark/models/<model>.py`).
 
 A layer is Kaldi's relu-batchnorm-layer: a spliced affine (the frames at
 the layer's offsets, concatenated, times the weight), ReLU, then batch
@@ -13,10 +15,11 @@ names the prefix of its parameters and lists its layers as [dim,
 offsets], so this file reads the weights the benchmark made by their
 names and knows nothing of the program's modules.
 
-`embed` runs one chunk in eval mode (running statistics) in float64 or
-a control's precision; `forward_train` runs a batch in train mode (batch
-statistics, as the training step normalises) with autograd, in the
-precision of the configuration's training (`precision.mm_grad`).
+The eval layers (`layer_eval`, `stack_eval`, `head_embed`) run in
+float64 or a control's precision with running statistics; the train
+layers (`layer_train`, `stack_train`, `head_train`) run a batch in train
+mode (batch statistics, as the training step normalises) with autograd,
+in the precision of the configuration's training (`precision.mm_grad`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ def context(layers: List) -> Tuple[int, int]:
     return (sum(max(-min(o), 0) for _, o in layers), sum(max(max(o), 0) for _, o in layers))
 
 
-def _ctx(arch: Mapping, *stacks: str) -> Tuple[int, int]:
+def stacks_context(arch: Mapping, *stacks: str) -> Tuple[int, int]:
+    """The (left, right) context of the named stacks of ``arch`` in a row."""
     return context([l for s in stacks for l in arch[s]["layers"]])
 
 
@@ -77,25 +81,9 @@ def pool(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([mean, torch.sqrt(torch.clamp(var, min=VAR_FLOOR))], dim=-1)
 
 
-def trunk_eval(feats: torch.Tensor, p: Params, cfg: Mapping, prec: str) -> torch.Tensor:
-    """The frame-level output that stats pooling reads, for one chunk
-    (T, D) -> (T - context, C)."""
-    arch = cfg["arch"]
-    if cfg["model"] == "xvector":
-        return stack_eval(feats, p, arch["frames"], prec)
-    if cfg["model"] == "combined":
-        shared = stack_eval(feats, p, arch["shared"], prec)
-        xv = stack_eval(shared, p, arch["xvec_branch"], prec)
-        am = stack_eval(feats, p, arch["am"], prec)
-        merged = append([(xv, _ctx(arch, "shared", "xvec_branch")), (am, _ctx(arch, "am"))])
-        h, _ = layer_eval(merged, p, "tdnn5", [0], prec)
-        return h
-    raise ValueError(f"unknown model {cfg['model']!r}")
-
-
-def embed(feats: torch.Tensor, p: Params, cfg: Mapping, prec: str = "ref") -> torch.Tensor:
-    """embedding_a of one chunk (T, D)."""
-    h = trunk_eval(feats, p, cfg, prec)
+def head_embed(h: torch.Tensor, p: Params, prec: str) -> torch.Tensor:
+    """embedding_a of one chunk from the frame-level output stats pooling
+    reads, (T', C): tdnn6's affine on the pooled statistics."""
     _, emb = layer_eval(pool(h)[None, :], p, "segment.tdnn6", [0], prec)
     return emb[0]
 
@@ -126,7 +114,7 @@ def stack_train(x, p: Params, stack: Mapping, prec: str):
     return x
 
 
-def _linear(x, p: Params, name: str) -> torch.Tensor:
+def linear(x, p: Params, name: str) -> torch.Tensor:
     """An output layer, float32 in every precision (it has no compute dtype)."""
     return x @ p[name + ".weight"].t() + p[name + ".bias"]
 
@@ -143,60 +131,46 @@ def append(streams) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
-def forward_train(feats: torch.Tensor, p: Params, cfg: Mapping, task: str,
-                  prec: str) -> torch.Tensor:
-    """Logits of a training batch: (B, L, senones) for the am task,
-    (B, speakers) for the xvec task."""
-    arch = cfg["arch"]
-    shared = stack_train(feats, p, arch["shared"], prec)
-    if task == "am":
-        h = stack_train(shared, p, arch["am_branch"], prec)
-        return _linear(h, p, "output_am")
-    xv = stack_train(shared, p, arch["xvec_branch"], prec)
-    am = stack_train(feats, p, arch["am"], prec)
-    merged = append([(xv, _ctx(arch, "shared", "xvec_branch")), (am, _ctx(arch, "am"))])
-    h = layer_train(merged, p, "tdnn5", [0], prec)
+def head_train(h: torch.Tensor, p: Params, prec: str) -> torch.Tensor:
+    """Speaker logits (B, speakers) from a batch's frame-level output
+    (B, T', C): stats pooling, tdnn6, tdnn7, the output layer."""
     pooled = pool(h)
     h = layer_train(pooled[:, None, :], p, "segment.tdnn6", [0], prec)
     h = layer_train(h, p, "segment.tdnn7", [0], prec)
-    return _linear(h[:, 0, :], p, "segment.output")
+    return linear(h[:, 0, :], p, "segment.output")
 
 
-def param_names(cfg: Mapping) -> Dict[str, Tuple[int, ...]]:
-    """Every parameter and batch-norm buffer the configuration's model
-    holds, with its shape, named as the benchmark names the weights it
-    makes."""
-    arch = cfg["arch"]
-    out: Dict[str, Tuple[int, ...]] = {}
+def layer_names(out: Dict, name: str, in_dim: int, dim: int, k: int) -> None:
+    """A relu-batchnorm-layer's parameters and batch-norm buffers, with
+    their shapes, into ``out``."""
+    out[name + ".affine.weight"] = (dim, in_dim, k)
+    out[name + ".affine.bias"] = (dim,)
+    out[name + ".batchnorm.weight"] = (dim,)
+    for buf in ("running_mean", "running_var"):
+        out[f"{name}.batchnorm.{buf}"] = (dim,)
 
-    def layer(name, in_dim, dim, k):
-        out[name + ".affine.weight"] = (dim, in_dim, k)
-        out[name + ".affine.bias"] = (dim,)
-        out[name + ".batchnorm.weight"] = (dim,)
-        for buf in ("running_mean", "running_var"):
-            out[f"{name}.batchnorm.{buf}"] = (dim,)
 
-    def stack(st, in_dim):
-        for i, (dim, offs) in enumerate(st["layers"]):
-            layer(f"{st['prefix']}.tdnn{i + st.get('first', 1)}", in_dim, dim, len(offs))
-            in_dim = dim
-        return in_dim
+def stack_names(out: Dict, st: Mapping, in_dim: int) -> int:
+    """A stack's layers into ``out``; returns its output dim."""
+    for i, (dim, offs) in enumerate(st["layers"]):
+        layer_names(out, f"{st['prefix']}.tdnn{i + st.get('first', 1)}", in_dim, dim, len(offs))
+        in_dim = dim
+    return in_dim
 
-    d = cfg["feat_dim"]
-    if cfg["model"] == "xvector":
-        pooled = 2 * stack(arch["frames"], d)
-    else:
-        s = stack(arch["shared"], d)
-        a = stack(arch["am_branch"], s)
-        out["output_am.weight"] = (cfg["num_senones"], a)
-        out["output_am.bias"] = (cfg["num_senones"],)
-        x = stack(arch["xvec_branch"], s)
-        b = stack(arch["am"], d)
-        layer("tdnn5", x + b, cfg["pool_dim"], 1)
-        pooled = 2 * cfg["pool_dim"]
-    layer("segment.tdnn6", pooled, cfg["embed_dim"], 1)
-    layer("segment.tdnn7", cfg["embed_dim"], cfg["embed_dim"], 1)
+
+def head_names(out: Dict, pooled: int, cfg: Mapping) -> None:
+    """The segment head's layers (tdnn6, tdnn7, the output layer) into ``out``."""
+    layer_names(out, "segment.tdnn6", pooled, cfg["embed_dim"], 1)
+    layer_names(out, "segment.tdnn7", cfg["embed_dim"], cfg["embed_dim"], 1)
     if cfg["num_speakers"]:
         out["segment.output.weight"] = (cfg["num_speakers"], cfg["embed_dim"])
         out["segment.output.bias"] = (cfg["num_speakers"],)
-    return out
+
+
+def starts_at_one(name: str) -> bool:
+    """The tensors a fresh TDNN holds at 1: batch-norm scales and variances."""
+    return name.endswith("batchnorm.weight") or name.endswith("running_var")
+
+
+# buffers of the port's TDNN modules that no configuration names
+PROGRAM_ONLY = (".batchnorm.bias", ".num_batches_tracked")

@@ -1,7 +1,8 @@
-"""Plain reference of one training step of the combined c-vector.
+"""Plain reference of one training step of a speaker network.
 
-The step of `train_cvector_with_am.sh`'s nnet3 training as the port
-defines it: the task's logits (`tdnn.forward_train`), the per-example
+The step of the nnet3 training (`train_cvector_with_am.sh`,
+`run_xvector_new.sh`) as the port defines it: the task's logits (the
+model kind's ``forward_train``, `benchmark/models/`), the per-example
 mean cross entropy times the task's weight, its gradients (autograd on
 the reference's own forward), then the optimizer chain, a frozen copy of
 `sepi_tpu_torch/train/optim.py` (optax's order; `nnet3-train` flags):
@@ -32,7 +33,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .tdnn import forward_train
 
 NS = (3.4445, -4.7750, 2.0315)
 
@@ -95,11 +95,13 @@ class Chain:
 
 
 def step(params: Dict[str, torch.Tensor], state: Dict, chain: Chain, feats, labels,
-         weight: float, task: str, cfg: Mapping, prec: str) -> Dict[str, float]:
-    """One CE step in place on float32 ``params``; returns objf and the
-    global gradient norm, and the gradients as the optimizer got them."""
+         weight: float, task: str, cfg: Mapping, prec: str, forward) -> Dict[str, float]:
+    """One CE step in place on float32 ``params``, the logits from
+    ``forward(feats, params, cfg, task, prec)`` (the model kind's
+    ``forward_train``); returns objf and the global gradient norm, and the
+    gradients as the optimizer got them."""
     leaves = {n: p.detach().clone().requires_grad_(True) for n, p in params.items()}
-    logits = forward_train(feats, leaves, cfg, task, prec).float()
+    logits = forward(feats, leaves, cfg, task, prec).float()
     xent = -torch.gather(F.log_softmax(logits, -1), -1, labels[..., None].long())[..., 0]
     loss = weight * xent.mean()
     names = list(leaves)

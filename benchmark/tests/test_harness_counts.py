@@ -15,7 +15,7 @@ SRE = json.load(open(f"{tiny.BENCH}/configs/xvector_v2.json"))["frontend"]
 def test_stack_flops_by_hand():
     # 10 frames in, 2 channels -> 4 channels over offsets -1..1 (8 frames out),
     # then 4 -> 3 over one tap: 2*8*2*3*4 + 2*8*4*1*3
-    f, frames, dim = flops._stack([[4, [-1, 0, 1]], [3, [0]]], 2, 10)
+    f, frames, dim = flops.stack_flops([[4, [-1, 0, 1]], [3, [0]]], 2, 10)
     assert (f, frames, dim) == (384.0 + 192.0, 8, 3)
 
 
@@ -48,6 +48,13 @@ def test_train_forward_flops_by_hand():
     assert flops.train_forward_flops(cfg, "am", 2, 10) == 2 * (384 + 384 + 1056)
     # xvec task: trunk 384 + 256 + 192 + 686, head 2*(14*5 + 5*5 + 5*13)
     assert flops.train_forward_flops(cfg, "xvec", 2, 10) == 2 * (1518 + 320)
+
+
+def test_train_forward_flops_of_the_xvector_by_hand():
+    cfg = {"model": "xvector", "feat_dim": 2, "embed_dim": 5, "num_speakers": 13,
+           "arch": {"frames": {"layers": [[4, [-1, 0, 1]], [3, [0]]]}}}
+    # batch 2 of 10 frames: the trunk 576 (above), head 2*(2*3*5 + 5*5 + 5*13)
+    assert flops.train_forward_flops(cfg, "xvec", 2, 10) == 2 * (576 + 240)
 
 
 def test_mfcc_counts_by_hand():

@@ -41,7 +41,10 @@ def test_audio_has_pauses_for_the_vad():
 def test_weights_are_a_function_of_the_seed():
     shapes = {"a.affine.weight": (6, 4, 3), "a.affine.bias": (6,), "a.batchnorm.weight": (6,),
               "a.batchnorm.running_var": (6,), "out.weight": (5, 6)}
-    w1, w2, w3 = W.make(shapes, 11, CPU), W.make(shapes, 11, CPU), W.make(shapes, 12, CPU)
+    from harness import core
+
+    tdnn = core.model_kind({"model": "xvector"})
+    w1, w2, w3 = (W.make(shapes, seed, CPU, tdnn) for seed in (11, 11, 12))
     assert all(torch.equal(w1[n], w2[n]) for n in shapes)
     assert not torch.equal(w1["out.weight"], w3["out.weight"])
     std = (1 / 12) ** 0.5 / 0.87962566103423978

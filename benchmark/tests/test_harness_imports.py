@@ -45,7 +45,7 @@ def test_the_reference_imports_neither_jax_nor_the_program():
 
 
 def test_the_harness_imports_no_jax():
-    for sub in ("", "harness", "drivers", "metrics", "tools"):
+    for sub in ("", "harness", "drivers", "metrics", "tools", "models"):
         for path in files(sub):
             assert not top_level_imports(path) & JAX, path
 
@@ -62,6 +62,22 @@ def _modules_after(code):
 def test_loaded_modules_of_the_reference():
     loaded = _modules_after("import reference.frontend, reference.tdnn, reference.extract, "
                             "reference.backend, reference.train, reference.precision")
+    assert not loaded & (JAX | {PROGRAM})
+
+
+def test_the_model_kinds_reference_loads_neither_jax_nor_the_program():
+    """A model kind's file builds the program inside a function; its
+    reference, names and counts load none of it."""
+    loaded = _modules_after(
+        "import torch, tests.tiny as t\nfrom harness import core\n"
+        "for cfg in (t.XVEC, t.CVEC):\n"
+        "    name = 'xvector_v2' if cfg is t.XVEC else 'cvector_v5'\n"
+        "    c = core.merge(core.load_json(core.BENCH_DIR / 'configs' / f'{name}.json'), cfg)\n"
+        "    k = core.model_kind(c)\n"
+        "    p = {n: torch.full(s, 0.1) for n, s in k.param_names(c).items()}\n"
+        "    k.embed(torch.ones(60, 23), p, c, 'ref')\n"
+        "    k.forward_train(torch.ones(2, 60, 23), p, c, 'xvec', 'bf16')\n"
+        "    k.embed_flops(c, 60), k.train_forward_flops(c, 'xvec', 2, 60)")
     assert not loaded & (JAX | {PROGRAM})
 
 

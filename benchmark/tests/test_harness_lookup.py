@@ -1,5 +1,5 @@
-"""The harness finds every file of a cell by name, and a cell, a mix and
-a per-layer metric are added by files and entries alone."""
+"""The harness finds every file of a cell by name, and a cell, a mix, a
+per-layer metric and a model kind are added by files and entries alone."""
 
 import json
 import re
@@ -74,7 +74,7 @@ def test_a_cell_added_by_files_and_entries_alone(tmp_path):
     """A throwaway configuration, mix, limits and per-layer metric, as a
     later change would add them: new files under a copy of the folders
     and new entries, no existing file edited."""
-    for d in ("configs", "traffic", "limits", "metrics", "drivers"):
+    for d in ("configs", "traffic", "limits", "metrics", "drivers", "models"):
         shutil.copytree(core.BENCH_DIR / d, tmp_path / d)
     cfg = core.merge(core.load_json(core.BENCH_DIR / "configs" / "xvector_v2.json"),
                      dict(tiny.XVEC, name="xvector_tiny"))
@@ -120,3 +120,45 @@ def test_a_mix_sets_the_runs_cpu_threads_before_torch_loads():
     out = subprocess.run([sys.executable, "-c", code], cwd=tiny.REPO, capture_output=True,
                          text=True, check=True, env=env)
     assert int(out.stdout.split()[-1]) == want
+
+
+def test_a_model_kind_added_by_files_and_entries_alone(tmp_path):
+    """A kind no file of the benchmark names (`tests/toy_kind.py`, a flat
+    TDNN), added as ``models/tdnn_flat.py`` with a configuration, limits
+    and two cells, one extracting and one training, in a copy of the
+    folders: both run end to end and are correct."""
+    for d in ("configs", "traffic", "limits", "metrics", "drivers", "models"):
+        shutil.copytree(core.BENCH_DIR / d, tmp_path / d)
+    assert not (tmp_path / "models" / "tdnn_flat.py").exists()
+    shutil.copy(core.BENCH_DIR / "tests" / "toy_kind.py", tmp_path / "models" / "tdnn_flat.py")
+    base = core.load_json(core.BENCH_DIR / "configs" / "xvector_v2.json")
+    cfg = {k: v for k, v in core.merge(base, tiny.XTRAIN).items() if k != "arch"}
+    cfg.update(name="flat_tiny", model="tdnn_flat", layers=tiny.X_ARCH["frames"]["layers"])
+    (tmp_path / "configs" / "flat_tiny.json").write_text(json.dumps(cfg))
+    (tmp_path / "limits" / "flat_tiny.extract.json").write_text(
+        json.dumps({"limits": {"embedding_rel_gap": 5e-5}}))
+    train_limits = dict(core.load_json(core.BENCH_DIR / "limits" / "cvector_v5.train.json")["limits"],
+                        **tiny.OVERRIDES["cvector_v5.train"]["limits"]["limits"])
+    (tmp_path / "limits" / "flat_tiny.train.json").write_text(json.dumps({"limits": train_limits}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "flat_tiny", "source": "test", "reduced": [],
+                             "file": "benchmark/configs/flat_tiny.json", "why": "test"})
+    for cell, mix in (("flat_tiny.extract", "extract_shards"), ("flat_tiny.train", "train_multitask")):
+        bench["workloads"].append({"name": cell, "config": "flat_tiny", "traffic": mix, "chips": 1,
+                                   "why": "test"})
+    bench["end_to_end"][0]["workloads"].append("flat_tiny.extract")
+    bench["end_to_end"][1]["workloads"].append("flat_tiny.train")
+    path = tmp_path / "BENCHMARK.json"
+    path.write_text(json.dumps(bench))
+    for cell, over, want in (("flat_tiny.extract", {"traffic": tiny.SERVE}, "extract_audio_s_per_s"),
+                             ("flat_tiny.train", {"traffic": tiny.XTRAIN_MIX}, "train_step_ms")):
+        rc, res = tiny.run(cell, overrides=over, bench_file=str(path), root=tmp_path)
+        assert rc == 0 and res["correct"], res and res["checks"]
+        assert {want, "setup_s"} == set(res["metrics"])
+
+
+def test_an_unknown_model_kind_names_its_missing_file(tmp_path):
+    with pytest.raises(FileNotFoundError, match=r"models/no_such_kind\.py"):
+        core.model_kind({"model": "no_such_kind"}, tmp_path)
+    with pytest.raises(FileNotFoundError, match=r"models/no_such_kind\.py"):
+        core.model_kind({"model": "no_such_kind"})

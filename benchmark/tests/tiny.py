@@ -1,6 +1,7 @@
 """Small sizes of the benchmark's cells, for the CPU tests (widths cut,
 which no configuration in BENCHMARK.json may do)."""
 
+import json
 import os
 import sys
 
@@ -28,6 +29,14 @@ CVEC = {"num_speakers": 10, "num_senones": 12, "embed_dim": 8, "hidden_dim": 16,
         "arch": C_ARCH, "extract": {"chunk_size": 200},
         "train": {"batch_size": 8, "am_batch_size": 16, "steps_per_dispatch": 2,
                   "chunks": {"min_chunk_len": 40, "max_chunk_len": 80, "num_buckets": 3}}}
+# the x-vector trained as cvector_v5 trains its xvec task (its train section
+# without the am keys), at the small sizes
+XTRAIN = dict(XVEC, train=dict(
+    {k: v for k, v in json.load(open(f"{BENCH}/configs/cvector_v5.json"))["train"].items()
+     if k not in ("am_batch_size", "am_lr_factor", "frames_per_eg")},
+    batch_size=4, steps_per_dispatch=2,
+    chunks={"min_chunk_len": 40, "max_chunk_len": 80, "num_buckets": 3}))
+XTRAIN_MIX = {"speakers": 10, "utts_per_speaker": 3, "frames_per_utt": 120, "num_steps": 1000}
 OVERRIDES = {
     "xvector_v2.extract": {"config": XVEC, "traffic": SERVE},
     "xvector_v2.verify": {"config": XVEC, "traffic": SERVE},
