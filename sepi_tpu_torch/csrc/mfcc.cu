@@ -103,6 +103,9 @@ struct Args {
   int sp;                // padded row stride of the frame store
   int span_rows;         // rows of the block's span
   int tail_rows;         // rows of one tail frame
+  int ring_floats;       // the basis ring, which later holds the DCT and lifter
+  int pow_stride;        // floats a frame of the power tile: kPowStride for the power,
+                         // n_ceps | 1 for the cepstra it holds last
   int use_energy, remove_dc, has_floor, dithered;
   float log_floor, dither;
 };
@@ -207,12 +210,12 @@ __global__ void __launch_bounds__(kThreads, 3) mfcc_kernel(Args a) {
     return;
   }
 
-  float* ring = smem;                                    // kStages x kStageFloats
-  float* span = ring + kStages * kStageFloats;           // span_rows x sp, then tails
+  float* ring = smem;                                    // ring_floats
+  float* span = ring + a.ring_floats;                    // span_rows x sp, then tails
   const int tail_base = a.span_rows * a.sp;              // tail frame i at + i*tail_rows*sp
-  float* power = span + tail_base + a.n_fix * a.tail_rows * a.sp;  // kFrames x kPowStride
+  float* power = span + tail_base + a.n_fix * a.tail_rows * a.sp;  // kFrames x pow_stride
   const int ms = a.n_mel | 1;                            // odd row stride, as power's
-  float* melacc = power + kFrames * kPowStride;          // kFrames x ms
+  float* melacc = power + kFrames * a.pow_stride;        // kFrames x ms
   float* log_e = melacc + kFrames * ms;                  // kFrames
   float* mel_w = log_e + kFrames;                        // mel_nnz
   int* band = reinterpret_cast<int*>(mel_w + a.mel_nnz); // lo, hi, off: 3 x n_mel
@@ -505,9 +508,7 @@ extern "C" int sepi_mfcc_fused(
     int dithered, void* stream) {
   if (batch <= 0 || t <= 0 || batch > 65535 || km % kPassBins != 0 || flen <= 0 ||
       shift < 8 || ksteps % kStepsPerStage != 0 || ksteps * 8 < flen || n_fix < 1 ||
-      n_fix > t || ((uintptr_t)basis & 15) != 0 ||
-      n_mel * n_ceps + n_ceps > kStages * kStageFloats ||
-      (n_ceps | 1) > kPowStride) {
+      n_fix > t || ((uintptr_t)basis & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -524,8 +525,13 @@ extern "C" int sepi_mfcc_fused(
   const int k_rows = (ksteps * 8 + shift - 1) / shift;  // rows a frame's k-steps touch
   a.span_rows = kFrames + k_rows;
   a.tail_rows = k_rows;
-  const size_t floats = (size_t)kStages * kStageFloats + (size_t)a.span_rows * a.sp +
-                        (size_t)n_fix * a.tail_rows * a.sp + kFrames * kPowStride +
+  // the ring and the power tile grow past their spectral sizes only where
+  // the DCT (n_mel x n_ceps) or a frame's cepstra outgrow them (80 x 80)
+  const int dct_floats = (n_mel * n_ceps + n_ceps + 3) / 4 * 4;  // the span 16-byte aligned
+  a.ring_floats = dct_floats > kStages * kStageFloats ? dct_floats : kStages * kStageFloats;
+  a.pow_stride = (n_ceps | 1) > kPowStride ? (n_ceps | 1) : kPowStride;
+  const size_t floats = (size_t)a.ring_floats + (size_t)a.span_rows * a.sp +
+                        (size_t)n_fix * a.tail_rows * a.sp + (size_t)kFrames * a.pow_stride +
                         (size_t)kFrames * (n_mel | 1) + kFrames + mel_nnz + 3 * (size_t)n_mel;
   const size_t smem = floats * sizeof(float);
   // a per-device attribute, raised on a card the first time a launch needs

@@ -189,7 +189,14 @@ def streaming_embed(model: torch.nn.Module, feats: np.ndarray, chunk: int = 1000
     of squares; the segment head runs once on the whole utterance's
     statistics.  ``model`` exposes ``trunk``/``head`` (`models.XVector`)
     and runs in eval mode on ``device``; ``feats`` is (T, D).  Returns
-    the float32 ``embedding_a``."""
+    the float32 ``embedding_a``.  A model without such a trunk (one whose
+    frame layers read the whole chunk, as ECAPA-TDNN's SE and attention
+    do) raises a `ValueError` naming it."""
+    if not (hasattr(model, "trunk") and hasattr(model, "head")
+            and hasattr(getattr(model, "cfg", None), "context")):
+        raise ValueError(f"streaming_embed: {type(model).__name__} has no streamable trunk "
+                         f"(model.trunk, model.head, model.cfg.context): its frame layers "
+                         f"must have a finite context whose outputs tile over chunks")
     dev = resolve_device(device)
     model = model.to(dev).eval()
     left, right = model.cfg.context

@@ -215,7 +215,8 @@ def lecun_normal_init(model: nn.Module, seed: int) -> None:
                 cpu = torch.empty(w.shape)
                 nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std, generator=g)
                 w.copy_(cpu)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, BatchNorm):
                 m.weight.fill_(1.0)
                 m.running_mean.zero_()

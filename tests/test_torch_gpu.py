@@ -72,16 +72,19 @@ def test_mfcc_kernel_wide_config(cuda):
 SRE8K = {}
 HIRES16K = dict(sample_rate=16000, num_mel_bins=40, num_ceps=40, low_freq=40.0,
                 high_freq=-200.0, use_energy=False)
+# ECAPA-TDNN's frontend (benchmark/configs/ecapa_c1024.json): 80 cepstra of
+# 80 bins, whose DCT and cepstra outgrow the kernel's spectral tiles
+VOX16K = dict(sample_rate=16000, num_mel_bins=80, num_ceps=80, high_freq=7600.0)
+CONFS = {"sre8k": SRE8K, "hires16k": HIRES16K, "vox16k": VOX16K}
 
 
-@pytest.mark.parametrize("conf", ["sre8k", "hires16k"])
+@pytest.mark.parametrize("conf", list(CONFS))
 @pytest.mark.parametrize("dither", [0.0, 1.0])
 @pytest.mark.parametrize("snip", [False, True])
 def test_mfcc_kernel_configs_and_short_utterances(cuda, conf, dither, snip):
     """One launch, no tail-patch launches: utterances shorter than a frame,
     than the tail window, and ending inside and at the edge of a block."""
-    cfg = FrontendConfig(dither=dither, snip_edges=snip,
-                         **(SRE8K if conf == "sre8k" else HIRES16K))
+    cfg = FrontendConfig(dither=dither, snip_edges=snip, **CONFS[conf])
     flen, shift = cfg.frame_length, cfg.frame_shift
     rng = np.random.default_rng(17 + int(dither) + 2 * snip)
     n = 70 * shift + flen
