@@ -4341,9 +4341,10 @@ def _p17_extraction(device, v2_cfg, ecfg, feats):
     d = _p17_diff(cap.extract_utterances(feats), eag.extract_utterances(feats))
     steps["load_state_dict"] = (d, graphs.call_counts["captures"] - before)
     mid = ladder[len(ladder) // 2]
-    shape = (ecfg.batch_size, mid, v2_cfg.feat_dim)
-    # a graph's key: ((static, (the model's, the features', the mask's signature), flags), ident)
-    old = next(g for key, g in cap.graphs.graphs.items() if key[0][1][1][0] == shape)
+    # a graph's key: ((static, (the model's, the features', the mask's signature), flags), ident);
+    # the middle bucket's graph, at its row rung
+    old = next(g for key, g in cap.graphs.graphs.items() if key[0][1][1][0][1] == mid)
+    shape = tuple(old.args[1].shape)
     fp32.to(torch.float64).to(torch.float32)  # new storage for every floating tensor
     fp32.load_state_dict(random_xvector(v2_cfg, 19, "cpu").state_dict())
     before = graphs.call_counts["captures"]
@@ -4361,7 +4362,7 @@ def _p17_extraction(device, v2_cfg, ecfg, feats):
     stale = old.run([fp32, x, m])  # the planted fault: a graph bound to the replaced weights
     fresh = eag.graphs(fp32, x, m)
     rows = int((stale != fresh).any(-1).sum())
-    planted = f"{rows} of {ecfg.batch_size} embeddings differ"
+    planted = f"{rows} of {shape[0]} embeddings differ"
     if rows == 0:
         bad.append("17a: the planted stale replay matched the eager forward: the check cannot "
                    "fail")

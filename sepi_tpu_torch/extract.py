@@ -3,8 +3,10 @@
 Port of `sepi_tpu/extract.py` (`extract_xvectors_new.sh` +
 `nnet3-xvector-compute`): utterances split into <= chunk_size pieces,
 chunks padded up to a small ladder of bucket lengths and run as dense
-masked batches, per-chunk embeddings averaged weighted by chunk length,
-and `ivector-mean` speaker averaging; `streaming_embed` pools an
+masked batches (each of a bucket's batches as many rows as the power of
+two at or above the chunks the bucket holds, up to ``batch_size``),
+per-chunk embeddings averaged weighted by chunk length, and
+`ivector-mean` speaker averaging; `streaming_embed` pools an
 utterance of any length exactly.  A bfloat16 model's embeddings come back
 as float32: the values are bf16-rounded and the sums float32, as the
 reference's numpy upcast gives them.
@@ -120,31 +122,48 @@ class EmbeddingExtractor:
         with span("extract.readback"):
             return out.cpu().numpy()
 
+    def _rows(self, n: int) -> int:
+        """The rows of every batch of a bucket holding ``n`` chunks: the
+        power of two at or above ``n``, capped at ``cfg.batch_size``; with a
+        mesh always ``cfg.batch_size`` (the data axis divides it).  Every
+        model the extractor runs is row-independent in eval mode, so the
+        rung changes how many all-zero rows a batch carries and, through
+        the kernels a shape selects, only the rounding; each bucket keeps
+        one shape a call, so a call captures no more graphs."""
+        bs = self.cfg.batch_size
+        if self.mesh is not None:
+            return bs
+        return min(bs, 1 << max(n - 1, 0).bit_length())
+
     def extract_utterances(self, features: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """utt_id -> (T, D) features  =>  utt_id -> embedding.  Counts each
-        batch's real chunk rows and frames against its slots (batch size x
+        batch's real chunk rows and frames against its slots (`_rows` x
         bucket length): ``extract.rows``, ``extract.row_slots``,
-        ``extract.frames``, ``extract.frame_slots`` (`utils.logging.count`)."""
+        ``extract.frames``, ``extract.frame_slots``, and the batches packed
+        at fewer than ``cfg.batch_size`` rows, ``extract.rung_batches``
+        (`utils.logging.count`)."""
         with span("extract"):
             with span("extract.plan"):
                 plan = self._plan(features)
             feat_dim = next(iter(features.values())).shape[1]
             sums: Dict[str, np.ndarray] = {}
             weights: Dict[str, float] = {}
-            bs = self.cfg.batch_size
             for b, items in plan.items():
-                for i0 in range(0, len(items), bs):
-                    group = items[i0:i0 + bs]
+                rows = self._rows(len(items))
+                for i0 in range(0, len(items), rows):
+                    group = items[i0:i0 + rows]
                     with span("extract.pack"):
-                        feats = np.zeros((bs, b, feat_dim), np.float32)
-                        mask = np.zeros((bs, b), bool)
+                        feats = np.zeros((rows, b, feat_dim), np.float32)
+                        mask = np.zeros((rows, b), bool)
                         for j, (utt, off, length) in enumerate(group):
                             feats[j, :length] = features[utt][off:off + length]
                             mask[j, :length] = True
                     count("extract.rows", len(group))
-                    count("extract.row_slots", bs)
+                    count("extract.row_slots", rows)
                     count("extract.frames", sum(length for _, _, length in group))
-                    count("extract.frame_slots", bs * b)
+                    count("extract.frame_slots", rows * b)
+                    if rows < self.cfg.batch_size:
+                        count("extract.rung_batches", 1)
                     emb = self._embed(feats, mask)
                     for j, (utt, off, length) in enumerate(group):
                         if utt in sums:

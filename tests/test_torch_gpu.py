@@ -988,9 +988,36 @@ def test_captured_extractor_equals_eager_on_the_card(deterministic_cudnn, dtype)
     model.to("cpu").to(dev)
     model.load_state_dict(_serving_model("cpu", dtype, seed=7).state_dict())
     assert same() and graphs.call_counts["captures"] == 10
-    x = torch.randn((8, 25, 23))
-    m = torch.ones((8, 25), dtype=torch.bool)
+    x = torch.randn(old.args[1].shape)  # its bucket's rows (the rung) x 25 frames
+    m = torch.ones(x.shape[:2], dtype=torch.bool)
     assert not torch.equal(old.run([model, x, m]), eag.graphs(model, x, m))
+
+
+def test_one_chunk_replays_a_one_row_graph_on_the_card(deterministic_cudnn, monkeypatch):
+    """A verification request's one chunk (3,000 frames, the 3,200 bucket):
+    replayed from a 1-row graph, bit-equal to capture=False at the same
+    rung, and within 1e-6 (relative l2) of the 32-row packing."""
+    from sepi_tpu_torch import graphs
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+
+    dev = deterministic_cudnn
+    cfg = ExtractConfig()
+    model = _serving_model(dev)
+    feats = {"req": np.random.default_rng(9).standard_normal((3000, 23)).astype(np.float32)}
+    cap = EmbeddingExtractor(model, cfg, min_frames=15, device=dev)
+    eag = EmbeddingExtractor(model, cfg, min_frames=15, device=dev, capture=False)
+    graphs.reset_counts()
+    cap.extract_utterances(feats)  # the capture
+    got = cap.extract_utterances(feats)["req"]
+    assert graphs.call_counts == {"captures": 1, "replays": 1}
+    (g,) = cap.graphs.graphs.values()
+    assert tuple(g.args[1].shape) == (1, 3200, 23)
+    assert np.array_equal(got, eag.extract_utterances(feats)["req"])
+    monkeypatch.setattr(EmbeddingExtractor, "_rows", lambda self, n: self.cfg.batch_size)
+    full = eag.extract_utterances(feats)["req"]
+    gap = np.linalg.norm(got.astype(np.float64) - full) / np.linalg.norm(full)
+    assert gap <= 1e-6, gap
 
 
 def test_captured_frontend_chain_equals_eager_on_the_card(deterministic_cudnn):

@@ -176,8 +176,8 @@ def test_weights_loaded_in_place_replay_and_moved_weights_recapture(strict):
     assert _equal(cap.extract_utterances(feats), eag.extract_utterances(feats))
     assert graphs.call_counts["captures"] == 2 * n and len(cap.graphs.graphs) == n
     # the old graph is bound to the replaced weights: its replay reads them
-    x = torch.randn((ECFG.batch_size, 25, XCFG.feat_dim))
-    m = torch.ones((ECFG.batch_size, 25), dtype=torch.bool)
+    x = torch.randn(old.args[1].shape)  # its bucket's rows (the rung) x 25 frames
+    m = torch.ones(x.shape[:2], dtype=torch.bool)
     assert not torch.equal(old.run([model, x, m]), eag.graphs(model, x, m))
 
 

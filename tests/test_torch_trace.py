@@ -149,8 +149,9 @@ def _model(seed=0):
 def test_extraction_counters_by_hand_and_its_spans(monkeypatch):
     """Utterances of 30, 45, 70 and 260 frames, batch 4, the default ladder
     (25, 50, 100, 200, 400, ...): one batch in bucket 50 (30 and 45), one
-    in 100, one in 400.  Each bucket is captured on its first call and
-    replayed on the second."""
+    in 100, one in 400, each packed at the row rung of its bucket's chunks
+    (2, 1 and 1 rows, all below the batch).  Each bucket is captured on its
+    first call and replayed on the second."""
     monkeypatch.setattr(graphs, "BACKEND", _Rerun())
     rng = np.random.default_rng(0)
     feats = {f"u{n}": rng.standard_normal((n, XCFG.feat_dim)).astype(np.float32)
@@ -158,9 +159,10 @@ def test_extraction_counters_by_hand_and_its_spans(monkeypatch):
     ex = EmbeddingExtractor(_model(), ExtractConfig(batch_size=4), device="cpu")
     with L.tracing():
         first = ex.extract_utterances(feats)
-    assert L.counters() == {"extract.rows": 4, "extract.row_slots": 12,
+    assert L.counters() == {"extract.rows": 4, "extract.row_slots": 2 + 1 + 1,
                             "extract.frames": 30 + 45 + 70 + 260,
-                            "extract.frame_slots": 4 * (50 + 100 + 400)}
+                            "extract.frame_slots": 2 * 50 + 100 + 400,
+                            "extract.rung_batches": 3}
     recs = L.spans()
     (root,) = _by_name(recs, "extract")
     assert root.parent is None and all(r.root == root.id for r in recs)
@@ -179,7 +181,7 @@ def test_extraction_counters_by_hand_and_its_spans(monkeypatch):
         "extract": 1, "extract.plan": 1, "extract.pack": 3, "extract.readback": 3,
         "graph.load": 3, "graph.replay": 3}
     assert all(np.array_equal(first[u], again[u]) for u in feats)
-    assert L.counters()["extract.frame_slots"] == 2200
+    assert L.counters()["extract.frame_slots"] == 600
 
 
 def test_frontend_spans_per_batch_and_utterance():
