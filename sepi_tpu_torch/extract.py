@@ -25,7 +25,7 @@ import torch
 
 from . import graphs
 from .config import ExtractConfig
-from .device import DeviceLike, fp32_math, resolve_device
+from .device import DeviceLike, fp32_math, host_buffer, pack_rows, readback, resolve_device
 from .utils.logging import count, span
 
 
@@ -106,7 +106,7 @@ class EmbeddingExtractor:
         """One padded batch's float32 embeddings (a bucket's graph)."""
         return model(feats, frame_mask=mask, **self.model_kwargs)[self.cfg.embedding_node].float()
 
-    def _embed(self, feats: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    def _embed(self, feats: torch.Tensor, mask: torch.Tensor) -> np.ndarray:
         """The embeddings of one padded batch; with a mesh, this rank's
         rows forwarded and every rank's gathered."""
         if self.mesh is None:
@@ -120,7 +120,7 @@ class EmbeddingExtractor:
             with torch.no_grad():
                 out = all_gather_rows(out, data_group(self.mesh))
         with span("extract.readback"):
-            return out.cpu().numpy()
+            return readback([out])[0]
 
     def _rows(self, n: int) -> int:
         """The rows of every batch of a bucket holding ``n`` chunks: the
@@ -153,11 +153,10 @@ class EmbeddingExtractor:
                 for i0 in range(0, len(items), rows):
                     group = items[i0:i0 + rows]
                     with span("extract.pack"):
-                        feats = np.zeros((rows, b, feat_dim), np.float32)
-                        mask = np.zeros((rows, b), bool)
-                        for j, (utt, off, length) in enumerate(group):
-                            feats[j, :length] = features[utt][off:off + length]
-                            mask[j, :length] = True
+                        feats = host_buffer((rows, b, feat_dim), torch.float32, self.device)
+                        mask = host_buffer((rows, b), torch.bool, self.device)
+                        pack_rows(feats, [features[utt][off:off + length]
+                                          for utt, off, length in group], mask=mask)
                     count("extract.rows", len(group))
                     count("extract.row_slots", rows)
                     count("extract.frames", sum(length for _, _, length in group))

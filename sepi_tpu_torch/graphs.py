@@ -14,15 +14,16 @@ here:
 `math_flags()`, the address, shape and dtype of every parameter and
 buffer of the modules it is handed, each submodule's ``training`` flag,
 and the static arguments (configs, task keywords).  A call copies its
-tensor inputs into the graph's static buffers (host arrays through a
-pinned staging buffer), replays, and returns fresh outputs cloned from
-the graph's.  The first call of a key is its own warm-up: it runs the
-function eagerly on the capture stream and returns that real result; the
-capture that follows runs nothing.  A graph binds the tensors its modules
-held at capture (the binding keeps them alive), so `load_state_dict`,
-which copies in place, keeps the graph and its replays read the new
-values, while a module moved onto new storage (`model.to()`) gets a new
-key and a new capture, and the graphs bound to its old tensors are let go.
+tensor inputs into the graph's static buffers (host ones from pinned
+memory, pinned first where they are not: `device`), replays, and returns
+fresh outputs cloned from the graph's.  The first call of a key is its
+own warm-up: it runs the function eagerly on the capture stream and
+returns that real result; the capture that follows runs nothing.  A
+graph binds the tensors its modules held at capture (the binding keeps
+them alive), so `load_state_dict`, which copies in place, keeps the graph
+and its replays read the new values, while a module moved onto new
+storage (`model.to()`) gets a new key and a new capture, and the graphs
+bound to its old tensors are let go.
 
 Every graph on a device, training and inference, is captured into one
 memory pool, held for the process by an anchor graph (`_Cuda.pool`): the
@@ -223,17 +224,8 @@ class CapturedCall:
         with torch.no_grad():
             self.entries = [(sub, kind, name, t.detach())
                             for sub, kind, name, t in _module_tensors(modules)]
-        self.args: List = []
-        self.pinned: Dict[int, torch.Tensor] = {}
-        for i, a in enumerate(args):
-            if isinstance(a, torch.Tensor):
-                self.args.append(torch.empty(a.shape, dtype=a.dtype, device=dev))
-                if dev.type == "cuda" and a.device.type == "cpu":
-                    self.pinned[i] = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-            else:
-                self.args.append(a)
-        # the last staged copy: the pinned buffers are written again only after it
-        self.staged = torch.cuda.Event() if self.pinned else None
+        self.args = [torch.empty(a.shape, dtype=a.dtype, device=dev)
+                     if isinstance(a, torch.Tensor) else a for a in args]
         self.outs: Tuple[torch.Tensor, ...] = ()
         self.single = False
         self.hooks: List[Callable[[], None]] = []
@@ -241,18 +233,12 @@ class CapturedCall:
 
     def _load(self, args: Sequence) -> None:
         with span("graph.load"):
-            if self.staged is not None:
-                self.staged.synchronize()
-            for i, (buf, a) in enumerate(zip(self.args, args)):
-                if not isinstance(a, torch.Tensor):
-                    continue
-                if i in self.pinned:
-                    self.pinned[i].copy_(a)
-                    buf.copy_(self.pinned[i], non_blocking=True)
-                else:
-                    buf.copy_(a)
-            if self.staged is not None:
-                self.staged.record()
+            for buf, a in zip(self.args, args):
+                if isinstance(a, torch.Tensor):
+                    if buf.is_cuda and not a.is_cuda and not a.is_pinned():
+                        a = a.pin_memory()
+                    # the caching host allocator keeps a pinned block until this copy is done
+                    buf.copy_(a, non_blocking=True)
 
     def _call(self):
         with torch.no_grad(), _bound(self.entries):

@@ -42,7 +42,7 @@ from ..config import (
 )
 from ..data.manifest import Dataset, Trial
 from ..data.sampler import ChunkSampler
-from ..device import DeviceLike, fp32_math, resolve_device
+from ..device import DeviceLike, fp32_math, host_buffer, pack_rows, readback, resolve_device
 from ..extract import EmbeddingExtractor
 from ..graphs import CallGraphs
 from ..metrics.det import EvalResult, evaluate_scores, split_scores_by_trials
@@ -68,6 +68,9 @@ from ..train.checkpoint import latest_checkpoint, parameter_progress
 from ..utils.logging import count, profile, span
 
 
+PAD_GRID = 4000  # samples: a frontend batch's padded length is a `_shape_bucket` of it
+
+
 def _shape_bucket(n: int, grid: int, growth: float = 1.3) -> int:
     """Padded-length bucket for one frontend batch: linear ``grid``
     steps up to ``4*grid`` samples, geometric ~30% steps beyond, so the
@@ -88,7 +91,6 @@ def _frontend_batches(
     cmvn: CmvnConfig,
     key: Optional[int],
     batch_size: int,
-    pad_grid: int = 4000,
     transform=None,
     capture: Optional[bool] = None,
 ):
@@ -105,16 +107,12 @@ def _frontend_batches(
     (`graphs.CallGraphs`: a graph per batch shape, dithered or not, kept
     for the generator's life), the counterpart of the reference's jitted
     frontend, VAD and CMVN; ``capture=False`` runs it eagerly.  There a
-    batch is packed in place into pinned host memory (`padded_audio_batches`
-    with ``pinned``), copied once to the device, and its outputs are read
-    back into pinned memory: the arrays yielded are views of pinned blocks
-    that go back to torch's caching host allocator with them, so a caller
-    copies out what it keeps.  The counter ``frontend.staged_bytes`` adds
-    the bytes each batch stages so, in and out.
+    batch's host inputs go to the graph as they are and its outputs come
+    back into pinned blocks (`device`): the arrays yielded are views a
+    caller copies out.  ``frontend.staged_bytes`` counts those bytes.
     """
     dither_on = fe.cfg.dither != 0.0
     salt = int(key) if (key is not None and dither_on) else 0
-    staged = fe.device.type == "cuda"
 
     def chain(samples, lengths, seeds=None):
         feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
@@ -124,65 +122,38 @@ def _frontend_batches(
         return sliding_cmvn(feats, mask, cmvn), voiced, mask.sum(-1)
 
     run = CallGraphs(chain, capture=capture, device=fe.device)
-    for names, samples, lengths in padded_audio_batches(audio, batch_size, pad_grid,
-                                                        pinned=staged):
-        seeds = [utt_seeds(names, base_seed=salt)] if dither_on else []
-        if staged:
-            # The graph copies device to device from these.  Each non-blocking
-            # copy records its event on its pinned block, and the caching host
-            # allocator hands the block out again only once the copy is done.
-            inputs = [samples, lengths] + [torch.from_numpy(s).pin_memory() for s in seeds]
-            outs = run(*[t.to(fe.device, non_blocking=True) for t in inputs])
-        else:
-            outs = run(samples, lengths, *seeds)
+    for names, samples, lengths in padded_audio_batches(audio, batch_size, device=fe.device):
+        inputs = [samples, lengths] + ([utt_seeds(names, base_seed=salt)] if dither_on else [])
+        outs = run(*inputs)
         with span("frontend.readback"):
-            if staged:
-                host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outs]
-                for h, t in zip(host, outs):
-                    h.copy_(t, non_blocking=True)
-                torch.cuda.current_stream(fe.device).synchronize()
-                count("frontend.staged_bytes", sum(t.nbytes for t in inputs + host))
-            else:
-                host = [t.cpu() for t in outs]
-            out = (names, *(h.numpy() for h in host))
-        yield out
-
-
-def _pack_rows(chunk, rows: np.ndarray, lengths: np.ndarray) -> None:
-    """Write each (utt_id, samples) of ``chunk`` into its row of ``rows``
-    and its length into ``lengths``, zeroing only the row's tail past its
-    length: ``rows`` may hold a former batch's bytes."""
-    for b, (_, x) in enumerate(chunk):
-        rows[b, :len(x)] = x
-        rows[b, len(x):] = 0
-        lengths[b] = len(x)
+            host = readback(outs)
+        if fe.device.type == "cuda":
+            count("frontend.staged_bytes", sum(t.nbytes for t in inputs + host))
+        yield (names, *host)
 
 
 def padded_audio_batches(audio: Mapping[str, np.ndarray], batch_size: int,
-                         pad_grid: int = 4000, pinned: bool = False):
+                         device: Optional[DeviceLike] = None):
     """Length-sorted batches of ``batch_size`` utterances, zero-padded to a
-    `_shape_bucket` of ``pad_grid`` samples: yields (utt_ids, samples (B, N)
-    float32, lengths (B,) int32) on the host, as numpy arrays.  With
-    ``pinned`` (a CUDA frontend's batches) they are page-locked torch
-    tensors from torch's caching host allocator, packed in place: after
-    the first batches of each size every block comes from its cache, with
-    its pages resident."""
+    `_shape_bucket` of `PAD_GRID` samples: yields (utt_ids, samples (B, N)
+    float32, lengths (B,) int32), as numpy arrays, or for a ``device`` as
+    host tensors packed in place into its `device.host_buffer`s (pinned
+    blocks for a CUDA device)."""
     if hasattr(audio, "num_samples"):
         ids = sorted(audio, key=lambda u: (audio.num_samples(u), u))
     else:
         ids = sorted(audio, key=lambda u: (len(audio[u]), u))
     for i in range(0, len(ids), batch_size):
         with span("frontend.pad"):
-            chunk = [(u, np.asarray(audio[u])) for u in ids[i:i + batch_size]]
-            shape = (len(chunk), _shape_bucket(max(len(x) for _, x in chunk), pad_grid))
-            if pinned:
-                samples = torch.empty(shape, dtype=torch.float32, pin_memory=True)
-                lengths = torch.empty(shape[:1], dtype=torch.int32, pin_memory=True)
-                _pack_rows(chunk, samples.numpy(), lengths.numpy())
-            else:
-                samples, lengths = np.empty(shape, np.float32), np.empty(shape[:1], np.int32)
-                _pack_rows(chunk, samples, lengths)
-        yield [u for u, _ in chunk], samples, lengths
+            names = ids[i:i + batch_size]
+            rows = [np.asarray(audio[u]) for u in names]
+            width = _shape_bucket(max(len(x) for x in rows), PAD_GRID)
+            samples = host_buffer((len(rows), width), torch.float32, device)
+            lengths = host_buffer((len(rows),), torch.int32, device)
+            pack_rows(samples, rows, lengths=lengths)
+        if device is None:
+            samples, lengths = samples.numpy(), lengths.numpy()
+        yield names, samples, lengths
 
 
 def iter_features_nosil(

@@ -1020,6 +1020,41 @@ def test_one_chunk_replays_a_one_row_graph_on_the_card(deterministic_cudnn, monk
     assert gap <= 1e-6, gap
 
 
+def test_captured_extraction_through_pinned_blocks_on_the_card(deterministic_cudnn):
+    """Extraction staged the one way (`device`): every batch handed to the
+    graphs as pinned host tensors, the captured calls bit-equal to
+    capture=False, and a second identical call on the held extractor
+    takes every pinned block from torch's caching host allocator."""
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+
+    dev = deterministic_cudnn
+    cfg = ExtractConfig(chunk_size=400, batch_size=8)
+    model = _serving_model(dev)
+    rng = np.random.default_rng(11)
+    feats = {f"u{i}": rng.standard_normal((n, 23)).astype(np.float32)
+             for i, n in enumerate([25, 40, 90, 150, 300, 400, 1000] + [45] * 10)}
+    cap = EmbeddingExtractor(model, cfg, min_frames=15, device=dev)
+    eag = EmbeddingExtractor(model, cfg, min_frames=15, device=dev, capture=False)
+    run, handed = cap.graphs, []
+
+    def spy(*args):  # flags only: a kept tensor would keep its pinned block
+        handed.extend((a.is_cuda, a.is_pinned()) for a in args if isinstance(a, torch.Tensor))
+        return run(*args)
+
+    cap.graphs = spy
+    first = cap.extract_utterances(feats)
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    second = cap.extract_utterances(feats)
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    assert handed and all(pinned and not on_card for on_card, pinned in handed)
+    want = eag.extract_utterances(feats)
+    assert sorted(first) == sorted(second) == sorted(want)
+    assert all(np.array_equal(first[u], want[u]) and np.array_equal(second[u], want[u])
+               for u in want)
+    assert len(run.graphs) == 5
+
+
 def test_captured_frontend_chain_equals_eager_on_the_card(deterministic_cudnn):
     """The frontend chain replayed, dithered and with the v1 deltas: equal
     to capture=False; the MFCC launches counted through the replays."""
@@ -1048,18 +1083,31 @@ def test_captured_frontend_chain_equals_eager_on_the_card(deterministic_cudnn):
             assert g[0] == w[0] and all(np.array_equal(a, b) for a, b in zip(g[1:], w[1:]))
 
 
-def test_frontend_batches_staged_in_pinned_memory_on_the_card(deterministic_cudnn):
+def test_frontend_batches_staged_in_pinned_memory_on_the_card(deterministic_cudnn, monkeypatch):
     """Two dithered frontend calls in a row on the same audio, each batch
     packed in place into pinned blocks that the second call takes again from
-    torch's caching host allocator: bit-equal to each other and to
+    torch's caching host allocator and handed to the graph on the host (no
+    device tensor made by the caller): bit-equal to each other and to
     capture=False; ``frontend.staged_bytes`` counts each batch's samples,
     lengths and seeds in and its three outputs out; the phonetic stream's
     arrays own their memory."""
     from sepi_tpu_torch.config import CmvnConfig, VadConfig
+    from sepi_tpu_torch.graphs import CallGraphs
     from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.recipes import pipeline
     from sepi_tpu_torch.recipes.pipeline import (_frontend_batches, padded_audio_batches,
                                                  prepare_features_phonetic)
     from sepi_tpu_torch.utils import logging as L
+
+    handed = []
+
+    class Spy(CallGraphs):
+        def __call__(self, *args):  # flags only: a kept tensor would keep its pinned block
+            handed.append([(a.is_pinned(), a.is_cuda) if isinstance(a, torch.Tensor) else a.dtype
+                           for a in args])
+            return super().__call__(*args)
+
+    monkeypatch.setattr(pipeline, "CallGraphs", Spy)
 
     dev = deterministic_cudnn
     rng = np.random.default_rng(10)
@@ -1079,6 +1127,8 @@ def test_frontend_batches_staged_in_pinned_memory_on_the_card(deterministic_cudn
     staged = L.counters()["frontend.staged_bytes"]
     if allocs is not None:
         assert stats()["num_host_alloc"] == allocs  # every block from the cache
+    # samples and lengths in pinned blocks, the seeds a numpy array the graph pins
+    assert handed and all(h == [(True, False), (True, False), np.int32] for h in handed)
     want = batches(capture=False)
     for a, b, w in zip(first, second, want):
         assert a[0] == b[0] == w[0]

@@ -274,6 +274,30 @@ def test_launches_count_through_replays(strict):
     assert graphs.counts == graphs.call_counts == {"captures": 1, "replays": 3}
 
 
+def test_packed_host_tensors_and_numpy_reach_the_static_buffers_equal(strict):
+    """One graph takes a batch packed into host buffers (`device.pack_rows`)
+    and the same batch as numpy arrays: both reach its static buffers equal,
+    and give the same outputs."""
+    from sepi_tpu_torch.device import host_buffer, pack_rows
+
+    rng = np.random.default_rng(3)
+    rows = [rng.standard_normal((n, 3)).astype(np.float32) for n in (5, 2, 7)]
+    feats = host_buffer((4, 8, 3), torch.float32, "cpu")
+    mask = host_buffer((4, 8), torch.bool, "cpu")
+    pack_rows(feats, rows, mask=mask)
+    calls = graphs.CallGraphs(lambda f, m: f.sum(-1) * m, device="cpu")
+    first = calls(feats, mask)  # the capture
+    (g,) = calls.graphs.values()
+    packed = [a.clone() for a in g.args]
+    for a in g.args:
+        a.zero_()
+    second = calls(feats.numpy().copy(), mask.numpy().copy())  # a replay from numpy
+    assert graphs.call_counts == {"captures": 1, "replays": 1} and len(calls.graphs) == 1
+    assert all(torch.equal(a, b) for a, b in zip(g.args, packed))
+    assert torch.equal(packed[0], feats) and torch.equal(packed[1], mask)
+    assert torch.equal(first, second)
+
+
 # ------------------------------------------------------------ the frontend chain
 
 
