@@ -678,7 +678,9 @@ class _MfccCapture:
     """Every `FeatureExtractor.mfcc` batch of a block, kept with its output,
     whether it ran eagerly or as a replay of a captured frontend (kept
     after each replay, `graphs.on_replay`); `check()` then holds each
-    against the plain version."""
+    against the plain version.  The frontend graphs kept across calls
+    (`pipeline._KEPT`) are let go on entry and on exit, so the block
+    captures its own, under its hooks, and none outlives it."""
 
     def __init__(self):
         from sepi_tpu_torch.ops.features import FeatureExtractor
@@ -687,7 +689,9 @@ class _MfccCapture:
 
     def __enter__(self):
         from sepi_tpu_torch import graphs
+        from sepi_tpu_torch.recipes import pipeline
 
+        pipeline._KEPT.clear()
         self.orig, self.replayed = self.cls.mfcc, 0
         cap = self
 
@@ -709,7 +713,10 @@ class _MfccCapture:
         return self
 
     def __exit__(self, *exc):
+        from sepi_tpu_torch.recipes import pipeline
+
         self.cls.mfcc = self.orig
+        pipeline._KEPT.clear()
 
     def check(self, problems, label):
         """{num_ceps: (batches, max abs err)} over the captured batches."""

@@ -23,7 +23,9 @@ graph binds the tensors its modules held at capture (the binding keeps
 them alive), so `load_state_dict`, which copies in place, keeps the graph
 and its replays read the new values, while a module moved onto new
 storage (`model.to()`) gets a new key and a new capture, and the graphs
-bound to its old tensors are let go.
+bound to its old tensors are let go.  A holder's graphs live as long as
+the holder: a caller that keeps one across calls replays in a later call
+what an earlier call captured.
 
 Every graph on a device, training and inference, is captured into one
 memory pool, held for the process by an anchor graph (`_Cuda.pool`): the

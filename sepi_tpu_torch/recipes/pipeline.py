@@ -23,7 +23,9 @@ writes checkpoints.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import threading
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,6 +45,7 @@ from ..config import (
 from ..data.manifest import Dataset, Trial
 from ..data.sampler import ChunkSampler
 from ..device import DeviceLike, fp32_math, host_buffer, pack_rows, readback, resolve_device
+from .. import graphs
 from ..extract import EmbeddingExtractor
 from ..graphs import CallGraphs
 from ..metrics.det import EvalResult, evaluate_scores, split_scores_by_trials
@@ -69,6 +72,12 @@ from ..utils.logging import count, profile, span
 
 
 PAD_GRID = 4000  # samples: a frontend batch's padded length is a `_shape_bucket` of it
+KEPT_GRAPHS = 32  # frontend graphs kept across calls, over every chain and shape
+
+# a frontend graph's key (`_kept_call`) -> (its `CallGraphs`, the call that
+# captured it), kept for the process, the least recently used first
+_KEPT: Dict[Tuple, Tuple[CallGraphs, object]] = {}
+_KEPT_LOCK = threading.Lock()  # around a kept graph's lookup, copy in, replay, clone and eviction
 
 
 def _shape_bucket(n: int, grid: int, growth: float = 1.3) -> int:
@@ -82,6 +91,45 @@ def _shape_bucket(n: int, grid: int, growth: float = 1.3) -> int:
     while b < n:
         b = -(-int(b * growth) // grid) * grid
     return b
+
+
+def _frontend_chain(fe: FeatureExtractor, vad: VadConfig, cmvn: CmvnConfig, transform):
+    """MFCC -> VAD -> [transform] -> CMVN of one padded batch on
+    ``fe.device``: (samples, lengths[, seeds]) -> (feats, voiced,
+    num_frames)."""
+
+    def chain(samples, lengths, seeds=None):
+        feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
+        voiced = energy_vad(feats[..., 0], mask, vad)
+        if transform is not None:
+            feats = transform(feats, mask)
+        return sliding_cmvn(feats, mask, cmvn), voiced, mask.sum(-1)
+
+    return chain
+
+
+def _kept_call(call: object, fe: FeatureExtractor, vad: VadConfig, cmvn: CmvnConfig,
+               transform, *inputs):
+    """One batch of the frontend call ``call`` through its graph in
+    `_KEPT`, keyed by everything the chain reads: the configs (frozen,
+    hashed by value), the spectral route, the transform (by identity), the
+    device, `graphs.math_flags` and the inputs' shapes and dtypes.  Counts
+    ``frontend.graph_reused`` when an earlier call captured the graph, then
+    lets go of the least recently used graphs until at most `KEPT_GRAPHS`
+    are kept.  A capture that fails keeps nothing."""
+    key = (fe.cfg, fe.fused, vad, cmvn, transform, fe.device, graphs.math_flags(),
+           tuple((tuple(a.shape), a.dtype) for a in inputs))
+    with _KEPT_LOCK:
+        run, made_by = _KEPT.pop(key, (None, call))
+        if run is None:
+            run = CallGraphs(_frontend_chain(fe, vad, cmvn, transform), device=fe.device)
+        outs = run(*inputs)
+        _KEPT[key] = run, made_by  # now the most recently used
+        if made_by is not call:
+            count("frontend.graph_reused")
+        while len(_KEPT) > KEPT_GRAPHS:
+            del _KEPT[next(iter(_KEPT))]
+    return outs
 
 
 def _frontend_batches(
@@ -104,24 +152,29 @@ def _frontend_batches(
     salts the whole corpus.
 
     On a CUDA device the chain is one CUDA graph replay per padded batch
-    (`graphs.CallGraphs`: a graph per batch shape, dithered or not, kept
-    for the generator's life), the counterpart of the reference's jitted
-    frontend, VAD and CMVN; ``capture=False`` runs it eagerly.  There a
-    batch's host inputs go to the graph as they are and its outputs come
+    (`graphs.CallGraphs`: a graph per batch shape, dithered or not), the
+    counterpart of the reference's jitted frontend, VAD and CMVN.  The
+    graphs are kept for the process (`_KEPT`), one per chain's configs,
+    route, transform, device and batch shape, at most `KEPT_GRAPHS` over
+    all of them, the least recently used let go first: a later call of a
+    shape an earlier call captured replays it, and counts
+    ``frontend.graph_reused``.  A kept graph's copy in, replay and output
+    clone run under `_KEPT_LOCK`, so callers on other threads share it as
+    long as they queue their work on one CUDA stream (the default one):
+    the lock orders the host's queuing, the stream the card's reads and
+    writes of the graph's static inputs and outputs.  ``capture=False``
+    and the CPU run the chain eagerly and keep nothing.  On a CUDA device
+    a batch's host inputs go to the graph as they are and its outputs come
     back into pinned blocks (`device`): the arrays yielded are views a
     caller copies out.  ``frontend.staged_bytes`` counts those bytes.
     """
     dither_on = fe.cfg.dither != 0.0
     salt = int(key) if (key is not None and dither_on) else 0
-
-    def chain(samples, lengths, seeds=None):
-        feats, mask = fe.mfcc(samples, lengths, utt_seeds=seeds)
-        voiced = energy_vad(feats[..., 0], mask, vad)
-        if transform is not None:
-            feats = transform(feats, mask)
-        return sliding_cmvn(feats, mask, cmvn), voiced, mask.sum(-1)
-
-    run = CallGraphs(chain, capture=capture, device=fe.device)
+    if capture is not False and graphs.BACKEND.capturable(fe.device):
+        run = functools.partial(_kept_call, object(), fe, vad, cmvn, transform)
+    else:
+        run = CallGraphs(_frontend_chain(fe, vad, cmvn, transform), capture=capture,
+                         device=fe.device)
     for names, samples, lengths in padded_audio_batches(audio, batch_size, device=fe.device):
         inputs = [samples, lengths] + ([utt_seeds(names, base_seed=salt)] if dither_on else [])
         outs = run(*inputs)

@@ -1083,6 +1083,54 @@ def test_captured_frontend_chain_equals_eager_on_the_card(deterministic_cudnn):
             assert g[0] == w[0] and all(np.array_equal(a, b) for a, b in zip(g[1:], w[1:]))
 
 
+def test_kept_frontend_graphs_replay_bit_equal_on_the_card(deterministic_cudnn, monkeypatch):
+    """Verification's frontend: one 10-60 s segment a call, a new
+    FeatureExtractor each call.  Once every width has been captured, later
+    calls replay the kept graphs (no capture, each batch counted in
+    ``frontend.graph_reused``), bit-equal to the first calls and to
+    capture=False."""
+    from sepi_tpu_torch import graphs
+    from sepi_tpu_torch.config import CmvnConfig, VadConfig
+    from sepi_tpu_torch.ops import FeatureExtractor
+    from sepi_tpu_torch.recipes import pipeline
+    from sepi_tpu_torch.utils import logging as L
+
+    monkeypatch.setattr(pipeline, "_KEPT", {})
+    dev = deterministic_cudnn
+    rng = np.random.default_rng(11)
+    audio = {f"r{i}": (rng.standard_normal(n) * 1000 * (1.2 + np.sin(np.arange(n) / 700.0))
+                       ).astype(np.float32)
+             for i, n in enumerate(rng.integers(80000, 480000, 8))}
+
+    def call(capture=None):
+        out = []
+        for name, x in audio.items():
+            fe = FeatureExtractor(FrontendConfig(), dev)
+            out += [(names, *(np.array(a) for a in arrays)) for names, *arrays in
+                    pipeline._frontend_batches({name: x}, fe, VadConfig(), CmvnConfig(), None, 16,
+                                               capture=capture)]
+        return out
+
+    graphs.reset_counts()
+    first = call()
+    widths = len({b[1].shape for b in first})
+    assert graphs.call_counts["captures"] == widths > 1
+    L.reset()
+    second = call()
+    assert graphs.call_counts == {"captures": widths, "replays": 2 * len(audio) - widths}
+    assert L.counters()["frontend.graph_reused"] == len(audio)
+    want = call(capture=False)
+    for a, b, w in zip(first, second, want):
+        assert a[0] == b[0] == w[0]
+        assert all(x.tobytes() == y.tobytes() == z.tobytes()
+                   for x, y, z in zip(a[1:], b[1:], w[1:]))
+    nosil = [pipeline.prepare_features_nosil({n: x}, FrontendConfig(), batch_size=16, device=dev)
+             for n, x in audio.items()]
+    assert graphs.call_counts["captures"] == widths
+    for (names, feats, voiced, _), f in zip(first, nosil):
+        assert f[names[0]].tobytes() == feats[0][voiced[0].astype(bool)].tobytes()
+
+
 def test_frontend_batches_staged_in_pinned_memory_on_the_card(deterministic_cudnn, monkeypatch):
     """Two dithered frontend calls in a row on the same audio, each batch
     packed in place into pinned blocks that the second call takes again from
@@ -1108,6 +1156,7 @@ def test_frontend_batches_staged_in_pinned_memory_on_the_card(deterministic_cudn
             return super().__call__(*args)
 
     monkeypatch.setattr(pipeline, "CallGraphs", Spy)
+    monkeypatch.setattr(pipeline, "_KEPT", {})  # the Spy holds this test's graphs
 
     dev = deterministic_cudnn
     rng = np.random.default_rng(10)

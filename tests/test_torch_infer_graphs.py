@@ -11,6 +11,9 @@ again) and hold what surrounds it:
 - ``capture=True`` raising on the CPU and with a mesh; a capture that
   fails raising without running the eager call;
 - kernel launches counted through replays;
+- the frontend chain's graphs kept across calls (`pipeline._KEPT`): a
+  second call replays them, a graph per frontend and shape, bounded,
+  least recently used let go first, nothing kept eagerly;
 - the captured path end to end against the reference's
   `extract_and_score` at `tests/test_torch_slice.py`'s widths and limits.
 Every capture here runs under `_Strict`, which fails a captured body that
@@ -18,6 +21,9 @@ reads a tensor on the host or makes one from host data (a sync or a
 pageable copy, which a CUDA capture refuses).
 """
 
+import dataclasses
+import sys
+import threading
 import types
 
 import jax
@@ -96,6 +102,7 @@ class _Strict(_Rerun):
 def strict(monkeypatch):
     backend = _Strict()
     monkeypatch.setattr(graphs, "BACKEND", backend)
+    monkeypatch.setattr(tp, "_KEPT", {})  # no frontend graph kept from another test
     graphs.reset_counts()
     return backend
 
@@ -345,6 +352,159 @@ def test_public_frontends_go_through_the_graphs(strict):
     assert _equal(feats, want)
 
 
+# ------------------------------------------------------------ the kept frontend graphs
+
+# ECAPA-TDNN's 16 kHz, 80 x 80 frontend (benchmark/configs/ecapa_c1024.json)
+VOX16K = FrontendConfig(sample_rate=16000, num_mel_bins=80, num_ceps=80, high_freq=7600.0)
+
+
+def _bytes(batches):
+    return [(names, *(a.tobytes() for a in arrays)) for names, *arrays in batches]
+
+
+def test_second_call_replays_kept_frontend_graphs(strict):
+    """A second `prepare_features_nosil` of the same shapes captures nothing
+    and replays every batch; its features, and a second chain's features,
+    voiced masks and frame counts, are byte-equal to the first call's and
+    to capture=False."""
+    audio = _audio(n_same=8, n_odd=3)
+    first = tp.prepare_features_nosil(audio, FrontendConfig(), key=3, batch_size=4, device="cpu")
+    batches = len(audio) // 4 + 1
+    shapes = graphs.call_counts["captures"]
+    assert 1 < shapes < batches and graphs.call_counts["replays"] == batches - shapes
+    assert graphs.live_graphs() >= shapes and len(tp._KEPT) == shapes
+    graphs.reset_counts()
+    second = tp.prepare_features_nosil(audio, FrontendConfig(), key=3, batch_size=4,
+                                       device="cpu")
+    assert graphs.call_counts == {"captures": 0, "replays": batches}
+    assert strict.captured == shapes
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "BACKEND", graphs._Cuda())  # the CPU runs eagerly
+        want = tp.prepare_features_nosil(audio, FrontendConfig(), key=3, batch_size=4,
+                                         device="cpu")
+    assert sorted(first) == sorted(second) == sorted(want)
+    assert all(first[u].tobytes() == second[u].tobytes() == want[u].tobytes() for u in want)
+    # a new FeatureExtractor of the same frontend: the same kept graphs
+    fe = FeatureExtractor(FrontendConfig(), "cpu")
+    kept = _bytes(tp._frontend_batches(audio, fe, VadConfig(), CmvnConfig(), 3, 4))
+    eager = _bytes(tp._frontend_batches(audio, fe, VadConfig(), CmvnConfig(), 3, 4,
+                                        capture=False))
+    assert kept == eager and len(kept) == batches
+    assert graphs.call_counts == {"captures": 0, "replays": 2 * batches}
+
+
+def test_kept_entries_per_frontend_and_dither(strict):
+    """The 8 kHz 23-dim and 16 kHz 80-dim frontends, dithered and not, keep
+    an entry each; a second round of the four captures nothing."""
+    audio = _audio(n_same=4, n_odd=0)
+    cfgs = [FrontendConfig(), FrontendConfig(dither=0.0), VOX16K,
+            dataclasses.replace(VOX16K, dither=0.0)]
+
+    def round_():
+        return [tp.prepare_features_nosil(audio, c, key=5, batch_size=4, device="cpu")
+                for c in cfgs]
+
+    first = round_()
+    assert graphs.call_counts == {"captures": 4, "replays": 0}
+    assert len(tp._KEPT) == 4 and all(len(r.graphs) == 1 for r, _ in tp._KEPT.values())
+    assert {k[0] for k in tp._KEPT} == set(cfgs)
+    second = round_()
+    assert graphs.call_counts == {"captures": 4, "replays": 4}
+    for a, b in zip(first, second):
+        assert all(a[u].tobytes() == b[u].tobytes() for u in a)
+    # each frontend's own features: the four differ
+    u = sorted(audio)[0]
+    assert len({f[u].shape[-1] for f in first}) == 2
+    assert not np.array_equal(first[0][u], first[1][u])
+
+
+def test_kept_graphs_bounded_least_recently_used_first(strict, monkeypatch):
+    """At most `KEPT_GRAPHS` over every frontend: a width used again is kept
+    over one used less recently, and `live_graphs` never exceeds the
+    bound."""
+    monkeypatch.setattr(tp, "KEPT_GRAPHS", 3)
+    rng = np.random.default_rng(4)
+    # one utterance a call, at the widths 4000, 8000, 12000, 16000 samples
+    calls = {w: {f"w{w}": (rng.standard_normal(w - 100) * 1000).astype(np.float32)}
+             for w in (4000, 8000, 12000, 16000)}
+    base = graphs.live_graphs()
+
+    def call(w, cfg=FrontendConfig()):
+        before = graphs.call_counts["captures"]
+        tp.prepare_features_nosil(calls[w], cfg, key=1, batch_size=4, device="cpu")
+        assert graphs.live_graphs() - base <= 3
+        return graphs.call_counts["captures"] - before
+
+    def widths():
+        return sorted(g.args[0].shape[1] for r, _ in tp._KEPT.values() for g in r.graphs.values())
+
+    assert [call(w) for w in (4000, 8000, 12000)] == [1, 1, 1]
+    assert call(4000) == 0  # used again: now the most recent
+    assert call(16000) == 1 and widths() == [4000, 12000, 16000]  # 8000 let go
+    assert call(8000) == 1 and widths() == [4000, 8000, 16000]  # then 12000
+    assert call(4000) == 0
+    # another frontend's graph counts against the same bound, and takes the oldest
+    assert call(4000, FrontendConfig(dither=0.0)) == 1
+    assert widths() == [4000, 4000, 8000]
+    assert {k[0] for k in tp._KEPT} == {FrontendConfig(), FrontendConfig(dither=0.0)}
+    for w in (12000, 16000):
+        call(w, FrontendConfig(dither=0.0))
+    assert {k[0] for k in tp._KEPT} == {FrontendConfig(dither=0.0)}
+    assert widths() == [4000, 12000, 16000]
+
+
+def test_kept_frontend_graphs_shared_by_threads(monkeypatch):
+    """Eight threads run one frontend at once, switching every microsecond:
+    each batch shape is captured once, and every thread's features are
+    byte-equal to the eager ones (a lost update to `_KEPT` or a static
+    buffer overwritten between another thread's copy in and replay would
+    break either)."""
+    backend = _Rerun()  # `_Strict` patches `torch.from_numpy` for every thread
+    audio = _audio(n_same=8, n_odd=3)
+    want = tp.prepare_features_nosil(audio, FrontendConfig(), key=3, batch_size=4, device="cpu")
+    shapes = {samples.shape for _, samples, _ in tp.padded_audio_batches(audio, 4)}
+    monkeypatch.setattr(graphs, "BACKEND", backend)
+    monkeypatch.setattr(tp, "_KEPT", {})
+    got, errors = [None] * 8, []
+
+    def work(i):
+        try:
+            got[i] = tp.prepare_features_nosil(audio, FrontendConfig(), key=3, batch_size=4,
+                                               device="cpu")
+        except Exception as e:  # reported below, with the thread's number
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(got))]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert backend.captured == len(tp._KEPT) == len(shapes)
+    for g in got:
+        assert sorted(g) == sorted(want)
+        assert all(g[u].tobytes() == want[u].tobytes() for u in want)
+
+
+def test_capture_false_and_the_cpu_keep_nothing(strict):
+    audio = _audio(n_same=4, n_odd=1)
+    fe = FeatureExtractor(FrontendConfig(), "cpu")
+    list(tp._frontend_batches(audio, fe, VadConfig(), CmvnConfig(), 3, 4, capture=False))
+    assert tp._KEPT == {} and graphs.call_counts == {"captures": 0, "replays": 0}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "BACKEND", graphs._Cuda())  # the CPU runs eagerly
+        tp.prepare_features_nosil(audio, FrontendConfig(), key=3, batch_size=4, device="cpu")
+        with pytest.raises(ValueError, match="capture=True needs a CUDA device"):
+            list(tp._frontend_batches(audio, fe, VadConfig(), CmvnConfig(), 3, 4, capture=True))
+    assert tp._KEPT == {} and graphs.call_counts == {"captures": 0, "replays": 0}
+    assert strict.captured == 0
+
+
 # ------------------------------------------------------------ the eval step
 
 
@@ -421,6 +581,7 @@ def captured_slice():
                                    embed_dim=32))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(graphs, "BACKEND", _Strict())
+        mp.setattr(tp, "_KEPT", {})
         graphs.reset_counts()
         # batches of 4 of the 12 equal-length utterances: a capture, then replays
         t_nosil = tp.prepare_features_nosil(tc.audio, FrontendConfig(dither=0.0), batch_size=4,

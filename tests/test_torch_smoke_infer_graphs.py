@@ -18,6 +18,7 @@ import torch
 
 from sepi_tpu_torch import graphs
 from sepi_tpu_torch.config import ExtractConfig
+from sepi_tpu_torch.recipes import pipeline
 from test_torch_bench import SMALL
 from test_torch_infer_graphs import XCFG, _Strict
 
@@ -38,6 +39,7 @@ def _phase(**kw):
 
 def test_phase_serving_rehearsal(monkeypatch, capsys):
     monkeypatch.setattr(graphs, "BACKEND", _Strict())
+    monkeypatch.setattr(pipeline, "_KEPT", {})
     out = _phase()
     text = capsys.readouterr().out
     assert "DIFFERS" not in text and "phase 17 serving graphs on cpu" in text
@@ -52,6 +54,7 @@ def test_phase_serving_catches_a_stale_replay(monkeypatch):
     """A key blind to the model's storage: after `model.to()` the extractor
     replays graphs bound to the old weights, and 17a fails."""
     monkeypatch.setattr(graphs, "BACKEND", _Strict())
+    monkeypatch.setattr(pipeline, "_KEPT", {})
     key = graphs.CallGraphs.key
 
     def blind(self, args):

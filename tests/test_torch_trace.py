@@ -7,7 +7,9 @@
 - the extractor's padding counters against a hand count, and its spans
   and the graph spans around a capture and a replay;
 - the frontend's and the Trainer's spans, once per batch, utterance or
-  unit, and at the log and eval boundaries.
+  unit, and at the log and eval boundaries;
+- ``frontend.graph_reused``: one per batch that a graph an earlier call
+  captured served.
 """
 
 import threading
@@ -43,6 +45,13 @@ def fresh_tracer():
     yield
     L.disable()
     L.reset()
+
+
+@pytest.fixture(autouse=True)
+def no_kept_graphs(monkeypatch):
+    """No frontend graph kept across tests: a test's substitute backend
+    stays with the test."""
+    monkeypatch.setattr(pipeline, "_KEPT", {})
 
 
 def _names(recs):
@@ -199,6 +208,34 @@ def test_frontend_spans_per_batch_and_utterance():
                       "frontend.select": 3}
     assert all(r.parent == root.id for r in recs if r is not root)
     assert sorted(feats) == sorted(audio)
+
+
+def test_frontend_graph_reused_counts_batches_of_earlier_calls(monkeypatch):
+    """Widths 8000 (two batches) and 12000 (one): the first call captures
+    two graphs and replays one of them, all its own; a second call's three
+    batches are served by the first call's graphs; a third call of a kept
+    and a new width counts the kept one alone."""
+    monkeypatch.setattr(graphs, "BACKEND", _Rerun())
+    graphs.reset_counts()
+    rng = np.random.default_rng(5)
+
+    def audio(*lengths):
+        return {f"a{i}": (rng.standard_normal(n) * 1000).astype(np.float32)
+                for i, n in enumerate(lengths)}
+
+    def reused(a):
+        L.reset()
+        pipeline.prepare_features_nosil(a, FrontendConfig(), VadConfig(), CmvnConfig(), 3, 2,
+                                        device="cpu")
+        return L.counters().get("frontend.graph_reused", 0)
+
+    first = audio(7000, 7500, 7800, 7900, 11000)
+    assert reused(first) == 0
+    assert graphs.call_counts == {"captures": 2, "replays": 1}
+    assert reused(first) == 3
+    assert graphs.call_counts == {"captures": 2, "replays": 4}
+    assert reused(audio(7100, 7200, 15000)) == 1  # 8000 kept, 16000 captured
+    assert graphs.call_counts == {"captures": 3, "replays": 5}
 
 
 def test_trainer_spans_once_per_unit_and_at_boundaries():
