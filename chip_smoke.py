@@ -191,6 +191,19 @@ non-zero:
      seconds against a 60 s budget.  Phases 4, 9 and 15 print and hold
      their inference replays (> 0): extraction and the frontend run as
      graph replays.
+ 18. the MFA-Conformer's attention score kernel (`ops.relpos_softmax`, Triton)
+     on the main path, run after phase 15: a. the published model (seeded
+     random weights, TF32 off) on a full 32-row 10,000-frame bucket through
+     EmbeddingExtractor eagerly, every score call of every block (the query
+     blocks the model hands the kernel, 384 x 4,997 wide) held within 1e-6
+     of `relpos_softmax_reference` on the same inputs; b. the same bucket
+     captured and replayed, the kernel's launches counted from 0 around
+     each call (the replay's must be one a block and query block), the
+     embeddings against 18a's within the cell's 5e-5, the memory peak; c.
+     the kernel, its plain version and its byte bound (12 bytes a score)
+     timed with CUDA events at the query blocks of the 10,000-, 3,200- and
+     400-frame buckets.  Its record is the third of the kernels line.
+     Wall seconds against a 60 s budget.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}, whose count is the one card the
 run used (the script shows its ranks that card alone).  Without a CUDA device the
@@ -201,6 +214,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4677,6 +4691,186 @@ def phase_bench(env, device="cuda", repeats=P15_REPEATS, shapes=None):
             "graphs": graph_counts}
 
 
+P18_ROWS, P18_FRAMES = 32, 10000  # the largest bucket of ExtractConfig(), full
+P18_MIN_FRAMES = 7  # the MFA-Conformer's shortest input
+P18_BUCKETS = (10000, 3200, 400)  # 18c: the score kernel timed at these buckets' query blocks
+RELPOS_TOL = 1e-6  # max abs error of a probability: each is in [0, 1], its exp within an ulp or two
+P18_EMBED_RTOL = 5e-5  # captured vs eager embeddings, relative l2: the cell's limit
+P18_BUDGET_S = 60.0  # phase 18's wall, reported against this budget
+
+
+def random_conformer(cfg, seed: int, device):
+    """An MfaConformer with weights from a seeded torch.Generator, the
+    norms' scales and the batch norms' statistics away from 1 and 0, and
+    the position biases u and v away from 0."""
+    import torch
+
+    from sepi_tpu_torch.models import MfaConformer
+
+    model = MfaConformer(cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=g) / p[0].numel() ** 0.5)
+            elif name.endswith("weight"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=g))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
+            elif name.endswith("running_var"):
+                buf.copy_(0.5 + 1.5 * torch.rand(buf.shape, generator=g))
+    return model.to(device).eval()
+
+
+def _relpos_case(b, h, q, t, seed, device):
+    """Seeded ``ac`` and, in the model's layout ((H, B, ...) transposed),
+    ``bd`` of a query block; every third batch row has no valid key."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ac = (4 * torch.randn((b, h, q, t), generator=g)).to(device)
+    bd = (4 * torch.randn((h, b, q, q + t - 1), generator=g)).to(device).transpose(0, 1)
+    lens = torch.tensor([(t, t // 2, 0)[i % 3] for i in range(b)], dtype=torch.int32,
+                        device=device)
+    return ac, bd, lens
+
+
+def phase_conformer(env, device="cuda", cfg=None, rows=P18_ROWS, frames=P18_FRAMES,
+                    ecfg=None, buckets=P18_BUCKETS):
+    """Phase 18: the MFA-Conformer's attention score kernel on the main
+    path.  a. a bucket of ``rows`` utterances of about ``frames`` frames
+    through `EmbeddingExtractor` eagerly, every `relpos_softmax` call of
+    every block held against `relpos_softmax_reference` on the same
+    inputs (the query blocks the model hands it); b. the same utterances
+    captured and then replayed, the kernel's launches counted from 0
+    around each call and the replay's held to one a block and query
+    block, the embeddings against 18a's, the memory peak; c. the kernel,
+    its plain version and its byte bound timed at the query blocks of
+    ``buckets`` at ``rows`` rows (CUDA events).  ``cfg`` and ``ecfg``
+    narrow it for a CPU rehearsal (``device="cpu"``), where the score
+    route is the plain one and nothing is timed."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.config import ExtractConfig
+    from sepi_tpu_torch.extract import EmbeddingExtractor
+    from sepi_tpu_torch.models import MfaConformerConfig
+    from sepi_tpu_torch.models import conformer as C
+    from sepi_tpu_torch.ops import relpos_softmax as R
+
+    t0 = time.perf_counter()
+    cfg = cfg or MfaConformerConfig()
+    ecfg = ecfg or ExtractConfig(embedding_node="embedding")
+    model = random_conformer(cfg, 18, device)
+    g = np.random.default_rng(18)
+    step = max(frames // (8 * rows), 1)  # every length in the one bucket of ``frames``
+    feats = {f"u{i:02d}": g.standard_normal((frames - step * i, cfg.feat_dim)).astype(np.float32)
+             for i in range(rows)}
+    ts = C.subsampled_frames(frames)
+    per_layer = -(-ts // C.query_rows(rows, cfg.num_heads, ts, C.ATTENTION_BLOCK_BYTES))
+    want_launches = cfg.num_blocks * per_layer
+
+    kernel, checked = C.relpos_softmax, []
+
+    def held(ac, bd, lengths, scale):
+        before = ac.clone()
+        out = kernel(ac, bd, lengths, scale)
+        want = R.relpos_softmax_reference(before, bd, lengths, scale)
+        checked.append((tuple(ac.shape), bool(torch.isfinite(out).all()),
+                        float((out - want).abs().max())))
+        return out
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    problems = []
+    try:
+        C.relpos_softmax = held
+        try:
+            eager = EmbeddingExtractor(model, ecfg, min_frames=P18_MIN_FRAMES, device=device,
+                                       capture=False).extract_utterances(feats)
+        finally:
+            C.relpos_softmax = kernel
+        err = max((e for _, _, e in checked), default=0.0)
+        shapes = sorted({s for s, _, _ in checked})
+        if len(checked) != want_launches:
+            problems.append(f"18a: {len(checked)} score calls, want {want_launches}")
+        if not all(f for _, f, _ in checked) or not err <= RELPOS_TOL:
+            problems.append(f"18a: score max abs err {err:.3e} (limit {RELPOS_TOL}) or not finite")
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ext = EmbeddingExtractor(model, ecfg, min_frames=P18_MIN_FRAMES, device=device)
+        launches = []
+        for _ in range(2):
+            R.relpos_softmax.launches = 0
+            got = ext.extract_utterances(feats)
+            launches.append(R.relpos_softmax.launches)
+        peak_gb = _peak_gb(device)
+        if device != "cpu" and (launches[1] != want_launches or launches[0] < want_launches):
+            problems.append(f"18b: launches {launches} (capturing call, replay), want "
+                            f"{want_launches} a call")
+        gap = max(float(np.linalg.norm(got[k] - eager[k]) / np.linalg.norm(eager[k]))
+                  for k in feats)
+        if not gap <= P18_EMBED_RTOL:
+            problems.append(f"18b: captured vs eager embeddings {gap:.3e} > {P18_EMBED_RTOL}")
+
+        cases = []
+        if device != "cpu":
+            for bucket in buckets:
+                t = C.subsampled_frames(bucket)
+                q = C.query_rows(rows, cfg.num_heads, t, C.ATTENTION_BLOCK_BYTES)
+                ac, bd, lens = _relpos_case(rows, cfg.num_heads, q, t, bucket, device)
+                scale = 1.0 / math.sqrt(cfg.d_model // cfg.num_heads)
+                want = R.relpos_softmax_reference(ac, bd, lens, scale)
+                out = R.relpos_softmax(ac.clone(), bd, lens, scale)
+                e = float((out - want).abs().max())
+                if not bool(torch.isfinite(out).all()) or not e <= RELPOS_TOL:
+                    problems.append(f"18c {tuple(ac.shape)}: max abs err {e:.3e} or not finite")
+                del out, want
+                # the kernel overwrites its input: each timed call reads the last one's probabilities
+                ms = time_ms(lambda: R.relpos_softmax(ac, bd, lens, scale))
+                plain_ms = time_ms(lambda: R.relpos_softmax_reference(ac, bd, lens, scale))
+                bound_ms = 12.0 * ac.numel() / env["peak_bw"] * 1e3
+                cases.append({"bucket": bucket, "shape": list(ac.shape), "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": e})
+                err = max(err, e)
+                del ac, bd
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    wall = time.perf_counter() - t0
+    where = env["smi"] if env else device
+    times = "; ".join(
+        f"{c['shape'][0]} x {c['shape'][1]} x {c['shape'][2]} x {c['shape'][3]} (bucket "
+        f"{c['bucket']}): kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, byte bound "
+        f"{c['bound_ms']:.4f} ms ({100 * c['bound_ms'] / c['ms']:.1f}% of it)"
+        for c in cases) or "not measured (CPU)"
+    log(f"phase 18 MFA-Conformer score kernel on {where}: 18a {rows} utterances of "
+        f"{frames - step * (rows - 1)}..{frames} frames, {len(checked)} score calls at "
+        f"{shapes} held against the plain version, max abs err {err:.3e} (limit {RELPOS_TOL}); "
+        f"18b relpos_softmax launches {launches[0]} (capturing call), {launches[1]} (replay), "
+        f"{want_launches} a forward ({cfg.num_blocks} blocks x {per_layer} query blocks), "
+        f"captured vs eager {gap:.3e}, peak memory {peak_gb:.2f} GB; 18c {times}; "
+        f"{wall:.1f} s against its {P18_BUDGET_S:.0f} s budget "
+        f"({'within' if wall <= P18_BUDGET_S else 'over'})")
+    if problems:
+        raise AssertionError("phase 18: " + "; ".join(problems))
+    rec = {
+        "name": "relpos_softmax", "route": "triton",
+        "source": "sepi_tpu_torch/ops/relpos_softmax.py",
+        "replaces": None,
+        "launches": launches[0], "launches_replay": launches[1],
+        "shapes_main_path": [list(s) for s in shapes],
+        "max_abs_err": err,
+        **{k: cases[0][k] if cases else None for k in ("ms", "plain_ms", "bound_ms", "shape")},
+        "bound_by": "bytes", "library_ms": None,
+        "cases": cases,
+    }
+    return {"record": rec, "peak_gb": peak_gb, "gap": gap, "wall": wall}
+
+
 def main() -> int:
     # the smoke drives one card: its spawned ranks see that card alone
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -4749,6 +4943,7 @@ def main() -> int:
     phase_graphs(env)
     serving = phase_serving(env)
     bench_run = phase_bench(env)
+    conformer = phase_conformer(env)
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -4791,7 +4986,7 @@ def main() -> int:
         "shape": s5["viterbi_shape"],
         "cases": vit["cases"],
     }
-    print(json.dumps({"kernels": [mfcc, vit_rec]}), flush=True)
+    print(json.dumps({"kernels": [mfcc, vit_rec, conformer["record"]]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     # CUDA_VISIBLE_DEVICES holds the one card the run used (set above)
     print(json.dumps({"ok": True, "device": {

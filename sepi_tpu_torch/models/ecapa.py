@@ -71,7 +71,17 @@ class ConvBlock(nn.Module):
         return self.bn(torch.relu_(self.conv(x)))
 
 
-def _valid_mean(x: torch.Tensor, keep: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+def frame_masks(valid: torch.Tensor, dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The masks of a (B, T) bool ``valid`` that `valid_mean` and
+    `AttentiveStatsPool` read: ``pad`` (B, 1, T) True on the padded
+    frames, ``keep`` (B, T, 1) 0/1 weights in ``dtype``, and ``count``
+    (B, 1, 1) the valid frames, at least 1."""
+    keep = valid.to(dtype)[:, :, None]
+    return ~valid[:, None, :], keep, torch.clamp(keep.sum(1, keepdim=True), min=1.0)
+
+
+def valid_mean(x: torch.Tensor, keep: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """(B, C, T) -> (B, C, 1): the mean over each row's valid frames, as
     one product with the (B, T, 1) 0/1 weights ``keep`` (no copy of x);
     ``x`` is finite on the padded frames."""
@@ -103,14 +113,16 @@ class SeRes2Block(nn.Module):
         del groups, ys  # the groups are views of conv1's output
         h = self.conv2(cat)
         del cat
-        z = _valid_mean(h, keep, count)[..., 0]
+        z = valid_mean(h, keep, count)[..., 0]
         s = torch.sigmoid(self.se_excite(torch.relu(self.se_squeeze(z))))
         return h.mul_(s[..., None]).add_(x)
 
 
 class AttentiveStatsPool(nn.Module):
     """Channel- and context-dependent attentive statistics pooling:
-    (B, C, T) -> (B, 2C)."""
+    (B, C, T) -> (B, 2C), over the valid frames that `frame_masks`'
+    ``pad``, ``keep`` and ``count`` give (the MFA-Conformer pools with it
+    too, `models.conformer`)."""
 
     def __init__(self, channels: int, bottleneck: int):
         super().__init__()
@@ -121,7 +133,7 @@ class AttentiveStatsPool(nn.Module):
     def forward(self, h: torch.Tensor, pad: torch.Tensor, keep: torch.Tensor,
                 count: torch.Tensor) -> torch.Tensor:
         t = h.shape[-1]
-        mu = _valid_mean(h, keep, count)
+        mu = valid_mean(h, keep, count)
         sq = (h - mu).masked_fill_(pad, 0.0).square_()
         sd = torch.sqrt(torch.clamp(sq.sum(-1, keepdim=True) / count, min=VAR_FLOOR))
         del sq
@@ -162,10 +174,7 @@ class EcapaTdnn(nn.Module):
         x = feats.transpose(1, 2)
         if frame_mask is None:
             frame_mask = torch.ones(x.shape[0], x.shape[2], dtype=torch.bool, device=x.device)
-        valid = frame_mask.bool()
-        pad = ~valid[:, None, :]
-        keep = valid.to(x.dtype)[:, :, None]
-        count = torch.clamp(keep.sum(1, keepdim=True), min=1.0)
+        pad, keep, count = frame_masks(frame_mask.bool(), x.dtype)
         with span("ecapa.stem"):
             inp = self.stem(x.masked_fill(pad, 0.0))
         outs = []

@@ -1233,3 +1233,145 @@ def test_failed_inference_capture_raises_on_the_card(cuda, monkeypatch):
     with pytest.raises(graphs.GraphCaptureError, match="planted"):
         ext.extract_utterances({"u": np.zeros((60, 23), np.float32)})
     assert ext.graphs.graphs == {}
+
+
+# ------------------------------------------- MFA-Conformer and its score kernel
+
+
+def _relpos_inputs(b, h, q, t, seed, dev, band_first=False):
+    """Seeded ac (B, H, q, t) and bd (B, H, q, q + t - 1); with
+    ``band_first`` bd is the model's layout, (H, B, ...) transposed."""
+    g = torch.Generator().manual_seed(seed)
+    ac = (4 * torch.randn((b, h, q, t), generator=g)).to(dev)
+    bd = 4 * torch.randn((h, b, q, q + t - 1), generator=g)
+    bd = bd.to(dev).transpose(0, 1) if band_first else bd.transpose(0, 1).contiguous().to(dev)
+    return ac, bd
+
+
+@pytest.mark.parametrize("b,h,q,t,band_first", [
+    (2, 4, 5, 7, False), (3, 2, 64, 300, True), (1, 1, 1, 1, False), (2, 4, 17, 1025, True),
+    (2, 4, 384, 4997, True)])
+def test_relpos_softmax_kernel_matches_plain(cuda, b, h, q, t, band_first):
+    """The Triton kernel against its plain version on the card: one launch,
+    probabilities within 2e-6 of the plain softmax's (the kernel's exp and
+    its sum's order), every key masked in a row of length 0 and the row
+    finite and uniform there."""
+    from sepi_tpu_torch.ops.relpos_softmax import relpos_softmax, relpos_softmax_reference
+
+    ac, bd = _relpos_inputs(b, h, q, t, b + q + t, cuda, band_first)
+    lengths = torch.tensor(([t, 0, max(t // 3, 1)] * b)[:b], dtype=torch.int32, device=cuda)
+    want = relpos_softmax_reference(ac, bd, lengths, 0.125)
+    before = relpos_softmax.launches
+    got = relpos_softmax(ac.clone(), bd, lengths, 0.125)
+    torch.cuda.synchronize()
+    assert relpos_softmax.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    print(f"relpos_softmax {b}x{h}x{q}x{t}: max gap {err:.3e}")
+    assert err < 2e-6
+    if b > 1:
+        assert torch.allclose(got[1], torch.full_like(got[1], 1.0 / t), rtol=1e-6, atol=0)
+
+
+def _conformer_weights(cfg, dev, seed=25):
+    """Seeded tensors by the reference's names: weights at 1/sqrt(fan_in),
+    offsets, u and v around 0, scales and variances away from 1."""
+    import sys
+    from pathlib import Path
+
+    bench = str(Path(__file__).resolve().parent.parent / "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from reference import conformer as ref
+
+    g = torch.Generator().manual_seed(seed)
+    p = {}
+    for name, shape in ref.param_names(cfg).items():
+        if name.endswith("weight") and len(shape) >= 2:
+            p[name] = torch.randn(shape, generator=g) / float(np.prod(shape[1:])) ** 0.5
+        elif name.endswith("running_var"):
+            p[name] = 0.5 + 1.5 * torch.rand(shape, generator=g)
+        elif ref.starts_at_one(name):
+            p[name] = 0.5 + torch.rand(shape, generator=g)
+        else:
+            p[name] = 0.3 * torch.randn(shape, generator=g)
+    return ref, {k: v.to(dev) for k, v in p.items()}
+
+
+def _published_conformer(dev):
+    import json
+    from pathlib import Path
+
+    from sepi_tpu_torch.models import MfaConformer, MfaConformerConfig
+
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "benchmark" / "configs"
+                      / "mfa_conformer.json").read_text())
+    names = {f.name for f in dataclasses.fields(MfaConformerConfig)} & set(cfg)
+    ref, p = _conformer_weights(cfg, dev)
+    model = MfaConformer(MfaConformerConfig(**{k: cfg[k] for k in names})).to(dev).eval()
+    model.load_state_dict(p, strict=False)
+    return cfg, ref, p, model
+
+
+@pytest.mark.parametrize("seconds", [30, 150])
+def test_conformer_at_published_widths_matches_the_reference_on_the_card(cuda, seconds, monkeypatch):
+    """The published MFA-Conformer (6 x 256, 4 heads, FF 2048, k 15) on one
+    utterance of 30 s (2,997 subsampled frames, one query block) and 150 s
+    (7,497, several blocks), float32 with TF32 off, against the float64
+    reference on the card: within the cell's limit of 5e-5."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg, ref, p, model = _published_conformer(cuda)
+    t = seconds * 100
+    feats = torch.randn((t, 80), generator=torch.Generator().manual_seed(t)).to(cuda)
+    with torch.no_grad():
+        got = model(feats[None])["embedding"][0]
+    want = ref.embed(feats, p, cfg, "ref")
+    gap = float((got.double() - want).norm() / want.norm())
+    print(f"conformer {seconds} s: gap {gap:.3e}")
+    assert gap < 5e-5
+
+
+def test_conformer_attention_and_a_full_bucket_fit_their_budget_on_the_card(cuda, monkeypatch):
+    """A 32-row bucket of 10,000 frames (4,997 subsampled) through
+    `CallGraphs`: the replay equals the capturing call; one block's
+    attention holds at most its query block's stated budget of scores
+    above the inputs and the 8 (B, T', d) tensors around them, and the
+    whole forward's peak is recorded."""
+    from sepi_tpu_torch.graphs import CallGraphs
+    from sepi_tpu_torch.models.conformer import ATTENTION_BLOCK_BYTES, query_rows
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg, _, _, model = _published_conformer(cuda)
+    b, t, d = 32, 10000, 256
+    ts = (t - 1) // 2 - 2
+    budget = ATTENTION_BLOCK_BYTES
+    rows = query_rows(b, 4, ts, budget)
+    assert 4 * b * 4 * rows * (rows + 2 * ts - 1) <= budget
+    g = torch.Generator().manual_seed(7)
+    lengths = torch.tensor([t - 37 * i for i in range(b)], dtype=torch.int32, device=cuda)
+    x = torch.randn((b, ts, d), generator=g).to(cuda)
+    pe = torch.randn((2 * ts - 1, d), generator=g).to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model.blocks[0].mhsa(x, pe, lengths)
+    torch.cuda.synchronize()
+    attn = torch.cuda.max_memory_allocated() - base
+    print(f"attention 32 x {ts}: {rows} query rows a block, peak {attn / 1e9:.3f} GB above its "
+          f"inputs (budget {budget / 1e9:.3f} GB)")
+    assert attn <= budget + 8 * b * ts * d * 4
+    del x, pe
+    feats = torch.randn((b, t, 80), generator=g)
+    mask = torch.arange(t)[None, :] < torch.tensor([t - 37 * i for i in range(b)])[:, None]
+    call = CallGraphs(lambda m, f, k: m(f, k)["embedding"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = call(model, feats, mask)
+    second = call(model, feats, mask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    maps = 4 * b * d * (((t - 3) // 2 + 1) * 39 + ts * 37)
+    print(f"bucket 32 x {t}: peak {peak / 1e9:.3f} GB (subsampler maps {maps / 1e9:.3f} GB)")
+    assert torch.equal(first, second) and bool(torch.isfinite(first).all())
+    assert len(call.graphs) == 1
