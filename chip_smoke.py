@@ -204,6 +204,16 @@ non-zero:
      timed with CUDA events at the query blocks of the 10,000-, 3,200- and
      400-frame buckets.  Its record is the third of the kernels line.
      Wall seconds against a 60 s budget.
+ 19. the sliding-CMVN kernel (`csrc/cmvn.cu`), run after phase 18: a. at
+     verification's shape (1 x 6,600 x 23, window 300), an extraction batch
+     (16 x 32,100 x 23) and 16 kHz batches (16 x 3,000 and 16 x 18,000 x 80,
+     window 10,000): the kernel, its plain version and `torch.cumsum` alone,
+     each timed as a call in a replayed CUDA graph, beside the byte bound;
+     the kernel's largest gap from the plain version and from float64, held
+     no further from float64 than the plain version; b. its launches on the
+     verification path (the capturing call, then a kept graph's replay,
+     which must launch it once).  Phase 4 holds the main path to one launch
+     a frontend batch.  Its record is the fourth of the kernels line.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}, whose count is the one card the
 run used (the script shows its ranks that card alone).  Without a CUDA device the
@@ -450,7 +460,7 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     from sepi_tpu_torch.config import FrontendConfig
     from sepi_tpu_torch.data import make_synthetic_corpus
     from sepi_tpu_torch.models import V2_XVECTOR
-    from sepi_tpu_torch.ops import mfcc_cuda
+    from sepi_tpu_torch.ops import cmvn, mfcc_cuda
     from sepi_tpu_torch.recipes import backend_eval, extract_and_score, prepare_features_nosil
 
     if model_cfg is None:
@@ -463,6 +473,7 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     enroll = {s: us[:1] for s, us in spk2utt.items()}
 
     mfcc_cuda.mfcc_fused.launches = 0
+    cmvn.sliding_cmvn.launches = 0
     graphs.reset_counts()
     t0 = time.perf_counter()
     nosil = prepare_features_nosil(corpus.audio, frontend, device=device)
@@ -471,6 +482,7 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     result, _ = backend_eval(embs, corpus.dataset, corpus.trials, enroll)
     secs = time.perf_counter() - t0
     launches = mfcc_cuda.mfcc_fused.launches
+    cmvn_launches = cmvn.sliding_cmvn.launches
     problems = []
     graph_counts = _graph_counts(device, "the main path", problems, inference=True)
     if problems:
@@ -484,8 +496,9 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
     for k, v in result.as_dict().items():
         if not np.isfinite(v):
             raise AssertionError(f"backend_eval {k} = {v}")
-    if device != "cpu" and launches <= 0:
-        raise AssertionError("the main path never launched the MFCC kernel")
+    if device != "cpu" and (launches <= 0 or cmvn_launches != launches):
+        raise AssertionError(f"the main path launched the MFCC kernel {launches} times and "
+                             f"the CMVN kernel {cmvn_launches}: one each a frontend batch")
 
     # the same path on the CPU (plain versions) for part of the corpus
     sub = sorted(corpus.audio)[:cpu_check_utts]
@@ -509,10 +522,11 @@ def phase_main_path(device="cuda", num_speakers=16, utts_per_speaker=6,
         f"{emb.shape} finite, EER {r['eer_pct']:.3f}% minDCF08 {r['min_dcf08']:.4f} "
         f"minDCF10 {r['min_dcf10_x1000'] / 1000:.4f} ({r['num_target']} target / "
         f"{r['num_nontarget']} nontarget trials; random weights) in {secs:.2f} s; "
-        f"mfcc_fused launches {launches}; {_fmt_graphs(graph_counts)}; vs CPU on "
+        f"mfcc_fused launches {launches}, sliding_cmvn {cmvn_launches}; "
+        f"{_fmt_graphs(graph_counts)}; vs CPU on "
         f"{len(same)}/{len(sub)} utts: features max abs {feat_err:.2e}, embeddings max rel "
         f"{emb_rel:.2e}")
-    return {"launches": launches, "graphs": graph_counts}
+    return {"launches": launches, "cmvn_launches": cmvn_launches, "graphs": graph_counts}
 
 
 def phase_throughput(env, device="cuda", batch=BENCH_B, secs=BENCH_SECS, iters=5):
@@ -4871,6 +4885,132 @@ def phase_conformer(env, device="cuda", cfg=None, rows=P18_ROWS, frames=P18_FRAM
     return {"record": rec, "peak_gb": peak_gb, "gap": gap, "wall": wall}
 
 
+P19_CASES = (  # name, B, T, D, window, utterance lengths (frames) or None for full rows
+    ("verification", 1, 6600, 23, 300, [6431]),
+    ("extraction", 16, 32100, 23, 300, None),
+    ("vox16k", 16, 3000, 80, 10000, None),
+    ("long16k", 16, 18000, 80, 10000, None),
+)
+P19_CALLS = 10  # calls of one captured graph a timing: the main path replays the kernel in a graph
+P19_VERIFY_S = 53.1  # a verification segment padded to 528,000 samples: 6,600 frames
+
+
+def _graph_ms(fn, calls=P19_CALLS) -> float:
+    """Device ms a call of ``fn()`` replayed ``calls`` times in one CUDA graph,
+    as the frontend graph replays it (median of `time_ms`)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    return time_ms(g.replay) / calls
+
+
+def _p19_case(b, t, d, lengths, seed, device):
+    """MFCC-like features, zero past each utterance's length, and the mask;
+    without ``lengths`` the rows take 1, 2, 3, ... tenths of T, the first
+    one the full T."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = [t] + [max(1, t * (i % 10 + 1) // 10 - i) for i in range(1, b)]
+    x = rng.normal(size=(b, t, d)).astype(np.float32) * 3 + np.linspace(-10, 20, d,
+                                                                         dtype=np.float32)
+    mask = np.arange(t)[None] < np.asarray(lengths)[:, None]
+    x[~mask] = 0.0
+    return torch.tensor(x, device=device), torch.tensor(mask, device=device)
+
+
+def phase_cmvn(env, device="cuda", cases=P19_CASES):
+    """Phase 19: the sliding-CMVN kernel (`csrc/cmvn.cu`).  a. at each of
+    ``cases``: the kernel, its plain version (`sliding_cmvn_reference`,
+    float32 `torch.cumsum` and its small passes) and `torch.cumsum` alone,
+    each a call in a replayed CUDA graph (CUDA events), beside the byte bound
+    (features and output once, one mask byte a frame) at the card's
+    bandwidth; the kernel's largest gap from the plain version and from the
+    plain version in float64.  b. its launches on the verification path: one
+    60 s segment through `prepare_features_nosil` twice (the capturing call,
+    then the kept graph's replay, which must launch it once)."""
+    import numpy as np
+    import torch
+
+    from sepi_tpu_torch.config import CmvnConfig, FrontendConfig
+    from sepi_tpu_torch.ops import cmvn
+    from sepi_tpu_torch.recipes import pipeline
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    timed = dev.type == "cuda"
+    rows, err = [], 0.0
+    for i, (name, b, t, d, w, lengths) in enumerate(cases):
+        cfg = CmvnConfig(window=w)
+        feats, mask = _p19_case(b, t, d, lengths, 19 + i, dev)
+        got = cmvn.sliding_cmvn(feats, mask, cfg)
+        plain = cmvn.sliding_cmvn_reference(feats, mask, cfg)
+        exact = cmvn.sliding_cmvn_reference(feats.double(), mask, cfg)
+        gap = float((got - plain).abs().max())
+        gap64 = float((got.double() - exact).abs().max())
+        plain64 = float((plain.double() - exact).abs().max())
+        err = max(err, gap)
+        row = {"case": name, "shape": [b, t, d], "window": w, "max_abs_err": gap,
+               "max_abs_err_f64": gap64, "plain_max_abs_err_f64": plain64,
+               "ms": None, "plain_ms": None, "library_ms": None, "bound_ms": None}
+        if timed:
+            row["ms"] = _graph_ms(lambda: cmvn.sliding_cmvn(feats, mask, cfg))
+            row["plain_ms"] = _graph_ms(lambda: cmvn.sliding_cmvn_reference(feats, mask, cfg))
+            row["library_ms"] = _graph_ms(lambda: torch.cumsum(feats, dim=1))
+            row["bound_ms"] = (8 * feats.numel() + mask.numel()) / env["peak_bw"] * 1e3
+        rows.append(row)
+        del feats, mask, got, plain, exact
+
+    # 19b: the verification path, a kept frontend graph per padded width
+    rng = np.random.default_rng(19)
+    n = int(P19_VERIFY_S * 8000)
+    audio = {"seg": (rng.standard_normal(n) * 1000 * (1.2 + np.sin(np.arange(n) / 700.0))
+                     ).astype(np.float32)}
+    launches = []
+    for _ in range(2):
+        before = cmvn.sliding_cmvn.launches
+        pipeline.prepare_features_nosil(audio, FrontendConfig(), device=device)
+        launches.append(cmvn.sliding_cmvn.launches - before)
+    problems = []
+    if timed and launches[1] != 1:
+        problems.append(f"the kept verification graph's replay launched the kernel "
+                        f"{launches[1]} times, not once")
+    bad = [r["case"] for r in rows if r["max_abs_err_f64"] > max(r["plain_max_abs_err_f64"], 1e-4)]
+    if bad:
+        problems.append(f"further from float64 than the plain version at {bad}")
+    wall = time.perf_counter() - t0
+    where = env["smi"] if env else device
+    times = "; ".join(
+        f"{r['case']} {r['shape'][0]} x {r['shape'][1]} x {r['shape'][2]} (w {r['window']}): "
+        + (f"kernel {r['ms'] * 1e3:.2f} us, byte bound {r['bound_ms'] * 1e3:.2f} us "
+           f"({r['ms'] / r['bound_ms']:.1f}x), plain {r['plain_ms'] * 1e3:.2f} us, "
+           f"torch.cumsum {r['library_ms'] * 1e3:.2f} us; " if timed else "not timed (CPU); ")
+        + f"gap from plain {r['max_abs_err']:.3e}, from float64 {r['max_abs_err_f64']:.3e} "
+        f"(plain {r['plain_max_abs_err_f64']:.3e})"
+        for r in rows)
+    log(f"phase 19 sliding-CMVN kernel on {where}: 19a {times}; 19b verification launches "
+        f"{launches[0]} (capturing call), {launches[1]} (replay); {wall:.1f} s")
+    if problems:
+        raise AssertionError("phase 19: " + "; ".join(problems))
+    return {
+        "name": "sliding_cmvn", "route": "cuda", "source": "sepi_tpu_torch/csrc/cmvn.cu",
+        "replaces": None, "launches_verify_capture": launches[0],
+        "launches_verify_replay": launches[1], "max_abs_err": err,
+        **{k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")},
+        "bound_by": "bytes", "cases": rows,
+    }
+
+
 def main() -> int:
     # the smoke drives one card: its spawned ranks see that card alone
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -4944,6 +5084,8 @@ def main() -> int:
     serving = phase_serving(env)
     bench_run = phase_bench(env)
     conformer = phase_conformer(env)
+    cmvn_rec = phase_cmvn(env)
+    cmvn_rec["launches"] = main_counts["cmvn_launches"]
     # the c-vector path: its front half is phase 6's run (features, s5,
     # labels), its back half phase 8b (training, unseen-speaker features,
     # extraction, scoring); each counted from 0 around its own run
@@ -4986,7 +5128,7 @@ def main() -> int:
         "shape": s5["viterbi_shape"],
         "cases": vit["cases"],
     }
-    print(json.dumps({"kernels": [mfcc, vit_rec, conformer["record"]]}), flush=True)
+    print(json.dumps({"kernels": [mfcc, vit_rec, conformer["record"], cmvn_rec]}), flush=True)
     print(nvidia_smi_line(), flush=True)
     # CUDA_VISIBLE_DEVICES holds the one card the run used (set above)
     print(json.dumps({"ok": True, "device": {

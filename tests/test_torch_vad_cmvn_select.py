@@ -83,6 +83,37 @@ def test_sliding_cmvn_short_utt_in_short_pad(t_pad):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("kw", [{}, dict(center=False), dict(normalize_variance=True)])
+@pytest.mark.parametrize("one_utterance", [False, True])
+def test_sliding_cmvn_routes_cpu_tensors_to_the_plain_version(monkeypatch, kw, one_utterance):
+    """CPU tensors never reach the CUDA kernel: the call loads no library
+    (none need be built) and returns the plain version's result exactly."""
+    from sepi_tpu_torch import build
+
+    def refuse(name):
+        raise AssertionError(f"a CPU call loaded the {name} library")
+
+    monkeypatch.setattr(build, "load", refuse)
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.normal(size=(2, 500, 6)).astype(np.float32))
+    mask = torch.from_numpy(_ragged_mask(2, 500, [500, 260]))
+    if one_utterance:
+        feats, mask = feats[1], mask[1]
+    cfg = tcfg.CmvnConfig(**kw)
+    before = tcmvn.sliding_cmvn.launches
+    got = tcmvn.sliding_cmvn(feats, mask, cfg)
+    assert tcmvn.sliding_cmvn.launches == before
+    assert torch.equal(got, tcmvn.sliding_cmvn_reference(feats, mask, cfg))
+    assert "cmvn" not in build._LOADED
+
+
+def test_sliding_cmvn_refuses_other_devices():
+    """Neither CPU nor CUDA: no plain fallback, no kernel."""
+    feats = torch.empty((1, 8, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tcmvn.sliding_cmvn(feats, torch.ones((1, 8), dtype=torch.bool, device="meta"))
+
+
 def test_select_voiced_frames_exact():
     rng = np.random.default_rng(9)
     feats = rng.normal(size=(3, 64, 6)).astype(np.float32)
